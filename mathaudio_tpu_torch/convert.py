@@ -1,0 +1,73 @@
+"""Carry the reference's sweep state across to the port.
+
+``node_major_params_from_numpy`` takes the JAX package's
+``NodeMajorParams`` with every leaf already converted to a numpy array
+(the container structure and field names kept, e.g. by mapping
+``np.asarray`` over the tree) and returns the port's ``NodeMajorParams``
+on ``device``. It reads fields by name and never imports JAX. The static
+DIA offsets are rebuilt from each level's ``row_of_slot``/``col_of_slot``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mathaudio_tpu_torch.fem.dia import DiaTables, dia_pattern
+from mathaudio_tpu_torch.fem.multigrid import MgBuilder, MgBuilderLevel
+from mathaudio_tpu_torch.fem.multigrid_batched import DiaLevel
+from mathaudio_tpu_torch.models.room_sweep_nm import NodeMajorParams
+from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
+
+
+def node_major_params_from_numpy(tree, device=None, dtype=None) -> NodeMajorParams:
+    """Port ``NodeMajorParams`` from the reference's numpy-leaved tree.
+
+    ``dtype`` is the real dtype of the tables (default float32); vectors
+    become the matching complex dtype, indices int64."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+
+    def real(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def index(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    def tables(t):
+        return DiaTables(*(real(getattr(t, f)) for f in DiaTables._fields))
+
+    fine = tables(tree.fine_tables)
+    levels = []
+    for l, lv in enumerate(tree.levels):
+        tabs = fine if l == 0 else tables(lv.tables)
+        levels.append(DiaLevel(tabs, index(lv.p_idx), real(lv.p_w), index(lv.r_idx), real(lv.r_w)))
+
+    builder_levels = []
+    for bl in tree.mg_builder.levels:
+        rows = np.asarray(bl.row_of_slot)
+        builder_levels.append(MgBuilderLevel(
+            k_vals=real(bl.k_vals),
+            m_vals=real(bl.m_vals),
+            b_sum=real(bl.b_sum),
+            row_of_slot=index(rows),
+            col_of_slot=index(bl.col_of_slot),
+            p_idx=index(bl.p_idx),
+            p_w=real(bl.p_w),
+            r_idx=index(bl.r_idx),
+            r_w=real(bl.r_w),
+            num_nodes=int(rows.max()) + 1,  # every P1 row holds its diagonal
+        ))
+
+    offsets = tuple(
+        dia_pattern(bl.row_of_slot, bl.col_of_slot)[0]
+        for bl in tree.mg_builder.levels[: len(tree.levels)]
+    )
+    return NodeMajorParams(
+        offsets=offsets,
+        fine_tables=fine,
+        levels=tuple(levels),
+        mg_builder=MgBuilder(tuple(builder_levels)),
+        rhs=torch.tensor(np.asarray(tree.rhs), dtype=complex_dtype_for(dtype), device=device),
+        listen_idx=index(tree.listen_idx),
+    )

@@ -1,0 +1,86 @@
+"""Hand-written CUDA kernels for Hopper and their build.
+
+Each ``*.cu`` file here exposes a plain C interface. ``load(name)``
+compiles ``<name>.cu`` with ``nvcc`` for ``sm_90a`` into
+``_build/<name>-<hash>.so`` on first use (the hash covers the source and
+the flags, so an edited source rebuilds) and loads it with ctypes. Nothing
+is built or imported while this package is imported: the CPU-only test
+host imports every module and has no ``nvcc``.
+
+A build failure raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+KERNEL_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNEL_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME, then PATH, then the toolkit's usual place."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where ``<name>.cu`` builds to, keyed by a hash of source + flags."""
+    src = KERNEL_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``<name>.cu`` unless its hashed library already exists."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = KERNEL_DIR / f"{name}.cu"
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``<name>.cu``'s library, once per process."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,62 @@
+"""The port stands alone: mathaudio_tpu_torch and chip_smoke.py import
+neither JAX nor the JAX package, and entry points never drift to the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "mathaudio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "mathaudio_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_found():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "chip_smoke.py" in names
+    assert "mathaudio_tpu_torch/fem/dia.py" in names
+    assert "mathaudio_tpu_torch/models/room_sweep_nm.py" in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = sorted({root for root in _imported_roots(path) if root in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys, mathaudio_tpu_torch, mathaudio_tpu_torch.convert, "
+        "mathaudio_tpu_torch.models.room_sweep_nm; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_refuse_to_drift_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the default device is valid here")
+    from mathaudio_tpu_torch.fem.multigrid import GeometricMultigrid, box_hierarchy
+    from mathaudio_tpu_torch.models.helmholtz_room import RoomSweepModel
+
+    meshes = box_hierarchy(2, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RoomSweepModel(meshes[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GeometricMultigrid(meshes)
