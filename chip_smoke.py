@@ -1,28 +1,46 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-The main path is the node-major FEM Helmholtz room sweep at the bench
-shape: a P1 box mesh at n=20 (9261 nodes) in a 3-level hierarchy, 4096
-wavenumbers in [0.55, 2.2] streamed as two chunks of 2048, shifted-
-Laplacian V(1,1) Jacobi multigrid (omega 1) preconditioning restarted
-GMRES (CGS1, restart 6, tol 1e-5), 16 Newton-Schulz-chained coarse
-inverses per band solve, anchor warm starts (stride 64, cubic, restart 3).
+Path 1 is the node-major FEM Helmholtz room sweep at the bench shape: a P1
+box mesh at n=20 (9261 nodes) in a 3-level hierarchy, 4096 wavenumbers in
+[0.55, 2.2] streamed as two chunks of 2048, shifted-Laplacian V(1,1)
+Jacobi multigrid (omega 1) preconditioning restarted GMRES (CGS1, restart
+6, tol 1e-5), 16 Newton-Schulz-chained coarse inverses per band solve,
+anchor warm starts (stride 64, cubic, restart 3).
+
+Path 2 is the dense BEM frequency sweep at the bench shape: an icosphere
+with 4 subdivisions (N=5120 triangles), order-3 quadrature (nq=4), a plane
+wave along +z, 8 wavenumbers in [0.5, 3.0] in one batch, one-shot
+assembly, Jacobi-preconditioned GMRES (restart 16, tol 1e-5, at most 64
+iterations), complex64: rigid (double-layer kernel), then Burton–Miller
+(beta = 4i/(k + 1/h); Burton–Miller kernel).
 
 Phases, each fatal on failure:
-1. build the hand-written DIA stencil kernel (kernels/dia_stencil.cu);
-2. hold each kernel mode against its plain PyTorch twin on the card at the
-   bench shape (complex64, rel. error <= 1e-5), at an odd lane count, and
-   in complex128 at a small shape (<= 1e-12), and time kernel and twin;
-3. run the sweep with every launch count set to 0 just before and read
-   just after: every kernel must have launched, 4096/4096 lanes must
+1. build the hand-written kernels (kernels/dia_stencil.cu and
+   kernels/bem_pairwise.cu, one nvcc each, started together);
+2. hold each DIA kernel mode against its plain PyTorch twin on the card at
+   the bench shape (complex64, rel. error <= 1e-5), at an odd lane count,
+   and in complex128 at a small shape (<= 1e-12), and time kernel and twin;
+3. run the FEM sweep with every launch count set to 0 just before and read
+   just after: every DIA kernel must have launched, 4096/4096 lanes must
    converge; then time repeats;
-4. check the answers: a 256-lane sub-band with the kernels vs with the
-   twins on the card, and a small float64 sweep on the card vs on the CPU.
-With ``--profile``, one more bench sweep runs under torch.profiler after
-phase 3 and its device time is printed by kernel group and kernel, with
-the device's idle share of the wall time.
+4. check the FEM answers: a 256-lane sub-band with the kernels vs with the
+   twins on the card, and a small float64 sweep on the card vs on the CPU;
+5. hold both BEM kernels against their twins off the diagonal (relative
+   Frobenius error per plane: float32 <= 1e-5 at the bench shape and at a
+   ragged 300 x 300 shape; float64 <= 1e-12 at N=320), and time them;
+6. run the rigid and the Burton–Miller BEM sweeps, each with the counts set
+   to 0 just before and read just after (the path's kernel must have
+   launched), all pressures finite, each frequency's residual
+   ||A p - b|| / ||b|| <= 1e-4 on the assembled matrices; time repeats;
+7. check the BEM answers: at N=1280 with 4 wavenumbers the sweep with the
+   kernels vs with the twins on the card and GMRES vs LU (<= 1e-4), and at
+   N=320 in float64 the card vs the CPU, LU and GMRES (<= 1e-9).
+With ``--profile``, once every phase has passed, one more sweep of each
+path runs under torch.profiler and its device time is printed by kernel
+group and kernel, with the device's idle share of the wall time.
 
 Output: progress lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and last
@@ -41,7 +59,7 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core rates of the kernel's arithmetic type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12}
+PEAK_FLOPS = {"complex64": 67e12, "complex128": 34e12, "float32": 67e12, "float64": 34e12}
 
 WALLS = (1, 2, 3, 4, 5, 6)
 ROOM = dict(wall_tags=WALLS, absorption=0.15,
@@ -55,6 +73,18 @@ TPU_KERNEL = "mathaudio_tpu/fem/dia.py:212"
 MODES = ("matvec", "residual", "jacobi")
 FLOPS_PER_PAIR = 15  # per in-band (node, diagonal) and lane: coefficient 7, complex FMA 8
 EPILOGUE_FLOPS = {"matvec": 0, "residual": 2, "jacobi": 31}  # per output
+
+BEM_SUBDIV, BEM_FREQS, BEM_BAND = 4, 8, (0.5, 3.0)
+BEM_GMRES = dict(solver="gmres", gmres_tol=1e-5, gmres_restart=16)
+BEM_SOURCE = "mathaudio_tpu_torch/kernels/bem_pairwise.cu"
+BEM_KERNELS = {  # variant: (name in the kernels line, TPU kernel replaced)
+    "double_layer": ("bem_double_layer", "mathaudio_tpu/ops/bem_assembly.py:43"),
+    "burton_miller": ("bem_burton_miller", "mathaudio_tpu/ops/bem_assembly.py:182"),
+}
+# Operations kernels/bem_pairwise.cu does (each add, multiply, compare,
+# sin, cos and rsqrt counted as one): per (i, j) pair, per (i, j, q) and
+# per (i, j, q, k); Burton-Miller also forms k^2 once per (i, j, k).
+BEM_OPS = {"double_layer": (0, 22, 13), "burton_miller": (5, 39, 26)}
 
 
 def log(msg: str) -> None:
@@ -216,7 +246,8 @@ def twin_stencil(dia):
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    for key, group in (("dia_stencil", "dia_stencil (hand-written)"), ("gemm", "gemm"),
+    for key, group in (("dia_stencil", "dia_stencil (hand-written)"),
+                       ("bem_pairwise", "bem_pairwise (hand-written)"), ("gemm", "gemm"),
                        ("gemv", "gemm"), ("xmma", "gemm"), ("getrf", "lu/inverse"),
                        ("getri", "lu/inverse"), ("trsm", "lu/inverse"), ("index", "gather/index"),
                        ("gather", "gather/index"), ("reduce", "reduction"), ("cat", "copy/cat"),
@@ -226,21 +257,31 @@ def _kernel_group(name: str) -> str:
     return "elementwise/other"
 
 
-def profile_sweep(sweep, params, ks):
-    """One sweep under torch.profiler: device time by kernel group and by
-    kernel, and the device's idle share of the sweep's wall time."""
+def profile_run(label, run, kernel):
+    """One ``run()`` under torch.profiler: device time by kernel group and
+    by kernel, the device's idle share of the run's wall time, and how
+    many launches of the path's hand-written ``kernel`` the trace holds.
+
+    A first ``run()`` is the profiler's warm-up step and is discarded:
+    without it the trace may miss the first kernel it should hold."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                schedule=schedule) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        sweep(params, ks)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+             if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     by_group, by_name = {}, {}
@@ -260,13 +301,252 @@ def profile_sweep(sweep, params, ks):
             cur_e = max(cur_e, end)
     busy += cur_e - cur_s
     window_ms = (spans[-1][1] - spans[0][0]) / 1e3
-    log(f"profile: wall {wall_ms:.1f} ms (profiled), device window {window_ms:.1f} ms, "
+    log(f"profile {label}: wall {wall_ms:.1f} ms (profiled), device window {window_ms:.1f} ms, "
         f"device busy {busy / 1e3:.1f} ms, idle share of wall {100 * (1 - busy / 1e3 / wall_ms):.1f}%, "
         f"{len(spans)} device activities")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        log(f"profile group: {g}: {us / 1e3:.2f} ms ({100 * us / busy:.1f}% of busy)")
+        log(f"profile {label} group: {g}: {us / 1e3:.2f} ms ({100 * us / busy:.1f}% of busy)")
     for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
-        log(f"profile kernel: {us / 1e3:.2f} ms in {count} calls: {name[:110]}")
+        log(f"profile {label} kernel: {us / 1e3:.2f} ms in {count} calls: {name[:110]}")
+    seen = sum(count for name, (count, _) in by_name.items() if kernel in name)
+    log(f"profile {label}: {seen} launches of {kernel} in the trace")
+
+
+def bem_bound(variant, ni, nj, nq, nf, rdtype):
+    """(least time in ms, "bytes" | "operations") for one BEM kernel call:
+    each input read once, each output written once; operations as
+    BEM_OPS counts them for these shapes."""
+    import torch
+
+    rb = torch.empty((), dtype=rdtype).element_size()
+    bm = variant == "burton_miller"
+    inputs = (3 * ni * (2 if bm else 1) + nj * (3 * nq + 3 + nq) + nf) * rb
+    outputs = (2 if bm else 1) * (2 * nf + 1) * ni * nj * rb
+    per_pair, per_point, per_point_k = BEM_OPS[variant]
+    ops = ni * nj * (per_pair + (nf if bm else 0) + nq * (per_point + per_point_k * nf))
+    t_bytes = (inputs + outputs) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[str(rdtype).replace("torch.", "")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def twin_pairwise(ops):
+    """A stand-in for ops.bem_pairwise that runs the plain twins (on the
+    card), to compare whole sweeps with and without the kernels."""
+
+    def pairwise(variant, x, nx, yq, ny, w, ks):
+        if variant == "burton_miller":
+            return ops.pairwise_bm_ref(x, nx, yq, ny, w, ks)
+        return ops.pairwise_double_layer_ref(x, yq, ny, w, ks)
+
+    return pairwise
+
+
+def _zero_diagonal(t):
+    import torch
+
+    torch.diagonal(t, dim1=-2, dim2=-1).zero_()
+    return t
+
+
+def bem_kernel_phase(ops, statics, statics64, dev):
+    """Both BEM kernels vs their twins off the diagonal: at the bench
+    shape (float32, timed, with bounds), at ragged shapes and in float64.
+    Returns per-variant records at the bench shape."""
+    import torch
+
+    twin = twin_pairwise(ops)
+
+    def args(variant, st, n, nf, dtype):
+        ks = torch.linspace(*BEM_BAND, nf, dtype=dtype, device=dev)
+        nx = st.normals[:n] if variant == "burton_miller" else None
+        return st.centers[:n], nx, st.qp[:n], st.normals[:n], st.qw[:n], ks
+
+    def check(label, variant, a, tol):
+        got = ops.bem_pairwise(variant, *a)
+        ref = twin(variant, *a)
+        torch.cuda.synchronize()
+        worst_abs = 0.0
+        for plane, g, r in zip(("D_k", "D_0", "T_k", "T_0"), got, ref):
+            g, r = _zero_diagonal(g), _zero_diagonal(r)
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{label} {variant} {plane}: non-finite entries off the diagonal")
+            diff = g - r
+            rel = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(r))
+            max_abs = float(torch.max(torch.abs(diff)))
+            log(f"kernel {label} {variant} {plane}: off-diagonal rel err {rel:.3e} (tol {tol:g}), "
+                f"max abs err {max_abs:.3e}")
+            if rel > tol:
+                raise AssertionError(f"{label} {variant} {plane}: kernel disagrees with its twin ({rel:.3e})")
+            worst_abs = max(worst_abs, max_abs)
+            del diff
+        return worst_abs
+
+    records = {}
+    n, nq = statics.centers.shape[0], statics.qp.shape[1]
+    for variant in BEM_KERNELS:
+        a = args(variant, statics, n, BEM_FREQS, torch.float32)
+        max_abs = check(f"f32 N={n} F={BEM_FREQS}", variant, a, 1e-5)
+        ms = time_ms(lambda: ops.bem_pairwise(variant, *a))
+        plain_ms = time_ms(lambda: twin(variant, *a), batches=3, per_batch=1)
+        b_ms, b_by = bem_bound(variant, n, n, nq, BEM_FREQS, torch.float32)
+        log(f"  {variant}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of bound")
+        records[variant] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by)
+        torch.cuda.empty_cache()
+        for nf in (3, 11):  # ragged rows, columns and frequency groups
+            check(f"f32 N=300 F={nf}", variant, args(variant, statics, 300, nf, torch.float32), 1e-5)
+        n64 = statics64.centers.shape[0]
+        check(f"f64 N={n64} F=4", variant, args(variant, statics64, n64, 4, torch.float64), 1e-12)
+    return records
+
+
+def rel_rows(got, want):
+    """Largest per-frequency relative 2-norm difference of (F, N) fields."""
+    import torch
+
+    return float(torch.max(torch.linalg.vector_norm(got - want, dim=1)
+                           / torch.linalg.vector_norm(want, dim=1)))
+
+
+def bem_sweep_phase(label, bm, mesh, statics, ks, inc, counters):
+    """One bench-shape sweep with the launch counts set to 0 just before
+    and read just after, checked (finite, residuals), then timed.
+    Returns (launches, the sweep as a callable)."""
+    import torch
+
+    from mathaudio_tpu_torch.bem import assembly, sweep
+    from mathaudio_tpu_torch.xtypes import full_f32_matmul
+
+    betas, rhs = sweep.sweep_inputs(mesh, statics, ks, inc, burton_miller=bm)
+
+    def run():
+        return sweep.sweep_apply(statics, ks, betas, rhs, burton_miller=bm, **BEM_GMRES)
+
+    dev = statics.centers.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.reset_launches()
+    t0 = time.perf_counter()
+    p = run()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    n = statics.centers.shape[0]
+    nf = ks.shape[0]
+    log(f"bem sweep {label} {nf} x {n}: first run {t_first:.3f} s, peak memory {peak_gib:.2f} GiB, "
+        f"launches {launches}")
+    if tuple(p.shape) != (nf, n) or not bool(torch.isfinite(p).all()):
+        raise AssertionError(f"bem sweep {label}: bad pressure output, shape {tuple(p.shape)}")
+
+    a = assembly._assemble(*statics, ks, betas, bm)
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"bem sweep {label}: the assembled matrices are not finite")
+    with full_f32_matmul():
+        res = torch.matmul(a, p.unsqueeze(-1)).squeeze(-1) - rhs
+    rel = torch.linalg.vector_norm(res, dim=1) / torch.linalg.vector_norm(rhs, dim=1)
+    del a, res
+    torch.cuda.empty_cache()
+    log(f"bem sweep {label}: residual ||A p - b||/||b|| per frequency "
+        f"{[float(f'{float(r):.3e}') for r in rel]}")
+    if float(rel.max()) > 1e-4:
+        raise AssertionError(f"bem sweep {label}: residual {float(rel.max()):.3e} > 1e-4")
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t_sweep = statistics.median(times)
+    log(f"bem sweep {label} steady state: median {t_sweep * 1e3:.2f} ms of "
+        f"{[round(t * 1e3, 2) for t in times]} ms, bem_dense_solves_per_s {nf / t_sweep:.2f}")
+    return launches, run
+
+
+def bem_answers_phase(ops, dev):
+    """N=1280: kernels vs twins and GMRES vs LU on the card; N=320 float64:
+    the card vs the CPU."""
+    import torch
+
+    from mathaudio_tpu_torch.bem import sweep
+    from mathaudio_tpu_torch.bem.incident import plane_wave
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+
+    inc = plane_wave((0.0, 0.0, 1.0))
+    mesh = icosphere(1.0, 3)
+    st = sweep.sweep_statics(mesh, dtype=torch.float32, device=dev)
+    ks = torch.linspace(*BEM_BAND, 4, dtype=torch.float32, device=dev)
+    for bm in (False, True):
+        betas, rhs = sweep.sweep_inputs(mesh, st, ks, inc, burton_miller=bm)
+        p_k = sweep.sweep_apply(st, ks, betas, rhs, burton_miller=bm, **BEM_GMRES)
+        p_lu = sweep.sweep_apply(st, ks, betas, rhs, burton_miller=bm, solver="lu")
+        kernel = ops.bem_pairwise
+        ops.bem_pairwise = twin_pairwise(ops)
+        try:
+            p_t = sweep.sweep_apply(st, ks, betas, rhs, burton_miller=bm, **BEM_GMRES)
+        finally:
+            ops.bem_pairwise = kernel
+        e_twin, e_lu = rel_rows(p_k, p_t), rel_rows(p_k, p_lu)
+        log(f"bem N={mesh.num_elements} F=4 burton_miller={bm}: kernels vs twins {e_twin:.3e}, "
+            f"GMRES vs LU {e_lu:.3e} (tol 1e-4)")
+        if e_twin > 1e-4 or e_lu > 1e-4:
+            raise AssertionError("bem sweep with kernels disagrees with the twins or with LU")
+
+    mesh = icosphere(1.0, 2)
+    ks64 = torch.linspace(*BEM_BAND, 4, dtype=torch.float64)
+    sts = {w: sweep.sweep_statics(mesh, dtype=torch.float64, device=w) for w in (dev, "cpu")}
+    for bm in (False, True):
+        for solver in ("lu", "gmres"):
+            out = []
+            for where, st in sts.items():
+                k = ks64.to(st.centers.device)
+                betas, rhs = sweep.sweep_inputs(mesh, st, k, inc, burton_miller=bm)
+                out.append(sweep.sweep_apply(st, k, betas, rhs, burton_miller=bm,
+                                             solver=solver).cpu())
+            err = rel_rows(out[0], out[1])
+            log(f"bem f64 N={mesh.num_elements} F=4 burton_miller={bm} {solver}: card vs CPU {err:.3e} "
+                f"(tol 1e-9)")
+            if err > 1e-9:
+                raise AssertionError("float64 BEM sweep on the card disagrees with the CPU")
+
+
+def bem_path(dev, counters):
+    """Path 2: the dense BEM sweep. Returns the kernel-line records and
+    the two bench sweeps as callables."""
+    import torch
+
+    from mathaudio_tpu_torch.bem import sweep
+    from mathaudio_tpu_torch.bem.incident import plane_wave
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.ops import bem_assembly as ops
+
+    t0 = time.perf_counter()
+    mesh = icosphere(1.0, BEM_SUBDIV)
+    statics = sweep.sweep_statics(mesh, dtype=torch.float32, device=dev)
+    statics64 = sweep.sweep_statics(icosphere(1.0, 2), dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    log(f"bem host build subdiv={BEM_SUBDIV}: {mesh.num_elements} elements, "
+        f"nq={statics.qp.shape[1]}, {time.perf_counter() - t0:.2f} s")
+
+    records = bem_kernel_phase(ops, statics, statics64, dev)
+
+    ks = torch.linspace(*BEM_BAND, BEM_FREQS, dtype=torch.float32, device=dev)
+    inc = plane_wave((0.0, 0.0, 1.0))
+    rigid, run_rigid = bem_sweep_phase("rigid", False, mesh, statics, ks, inc, counters)
+    if rigid["double_layer"] == 0 or rigid["burton_miller"] != 0:
+        raise AssertionError(f"the rigid sweep did not run through the double-layer kernel alone: {rigid}")
+    bm, run_bm = bem_sweep_phase("burton_miller", True, mesh, statics, ks, inc, counters)
+    if bm["burton_miller"] == 0:
+        raise AssertionError(f"the Burton-Miller sweep did not launch its kernel: {bm}")
+    records["double_layer"]["launches"] = rigid["double_layer"]
+    records["burton_miller"]["launches"] = bm["burton_miller"]
+
+    bem_answers_phase(ops, dev)
+    return records, {"bem_rigid": run_rigid, "bem_burton_miller": run_bm}
 
 
 def main() -> int:
@@ -276,7 +556,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bench sweep (torch.profiler) and print "
+                    help="also profile one bench sweep of each path (torch.profiler) and print "
                          "device time by kernel and the device's idle share")
     profile = ap.parse_args().profile
     if not torch.cuda.is_available():
@@ -288,6 +568,7 @@ def main() -> int:
     from mathaudio_tpu_torch.fem.multigrid import GeometricMultigrid, box_hierarchy
     from mathaudio_tpu_torch.models.helmholtz_room import RoomSweepModel
     from mathaudio_tpu_torch.models.room_sweep_nm import NodeMajorRoomSweep
+    from mathaudio_tpu_torch.ops import bem_assembly
     from mathaudio_tpu_torch.solvers.krylov import KrylovConfig
 
     dev = torch.device("cuda", 0)
@@ -296,12 +577,15 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    # 1. build
+    # 1. build, one nvcc per source, started together
+    sources = ("dia_stencil", "bem_pairwise")
     t0 = time.perf_counter()
-    fresh = not kernels.library_path("dia_stencil").exists()
-    kernels.load("dia_stencil")
-    log(f"build: dia_stencil.cu -> {kernels.library_path('dia_stencil').name} "
-        f"{'built' if fresh else 'cached'} in {time.perf_counter() - t0:.2f} s")
+    fresh = [not kernels.library_path(name).exists() for name in sources]
+    kernels.build_all(sources)
+    for name, new in zip(sources, fresh):
+        kernels.load(name)
+        log(f"build: {name}.cu -> {kernels.library_path(name).name} {'built' if new else 'cached'}")
+    log(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
 
     # host build at the bench shape (float32) and a small float64 one
     t0 = time.perf_counter()
@@ -329,6 +613,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     dia.reset_launches()
+    bem_assembly.reset_launches()
     t0 = time.perf_counter()
     p, its, conv = sweep(params, ks)
     torch.cuda.synchronize()
@@ -359,8 +644,6 @@ def main() -> int:
         raise AssertionError("repeat sweep changed the iteration counts")
     log(f"sweep steady state: median {t_sweep * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} ms, "
         f"{meshes[0].num_nodes * BENCH_FREQS / t_sweep:.4e} DoF-solves/s")
-    if profile:
-        profile_sweep(sweep, params, ks)
 
     # 4a. 256-lane sub-band: kernels vs twins on the card
     sub = ks[:256].contiguous()
@@ -394,10 +677,23 @@ def main() -> int:
     if s_err > 1e-9 or not torch.equal(ig, ic) or not bool(cg.all()):
         raise AssertionError("float64 sweep on the card disagrees with the CPU")
 
+    # 5-7. path 2, the dense BEM sweep
+    bem_records, bem_runs = bem_path(dev, (dia, bem_assembly))
+
+    # profiles last, once every kernel has run
+    if profile:
+        profile_run("fem", lambda: sweep(params, ks), "dia_stencil")
+        for label, run in bem_runs.items():
+            profile_run(label, run, "bem_pairwise")
+
     kernels_line = {"kernels": [
         dict(name=f"dia_stencil_{mode}", route="cuda", source=KERNEL_SOURCE, replaces=TPU_KERNEL,
              launches=launches[mode], library_ms=None, **records[mode])
         for mode in MODES
+    ] + [
+        dict(name=name, route="cuda", source=BEM_SOURCE, replaces=replaces, library_ms=None,
+             **bem_records[variant])
+        for variant, (name, replaces) in BEM_KERNELS.items()
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(gpu_line(), flush=True)

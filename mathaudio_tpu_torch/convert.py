@@ -6,6 +6,8 @@
 ``np.asarray`` over the tree) and returns the port's ``NodeMajorParams``
 on ``device``. It reads fields by name and never imports JAX. The static
 DIA offsets are rebuilt from each level's ``row_of_slot``/``col_of_slot``.
+``sweep_statics_from_numpy`` does the same for the dense BEM sweep's
+``SweepStatics``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mathaudio_tpu_torch.bem.sweep import SweepStatics
 from mathaudio_tpu_torch.fem.dia import DiaTables, dia_pattern
 from mathaudio_tpu_torch.fem.multigrid import MgBuilder, MgBuilderLevel
 from mathaudio_tpu_torch.fem.multigrid_batched import DiaLevel
@@ -71,3 +74,15 @@ def node_major_params_from_numpy(tree, device=None, dtype=None) -> NodeMajorPara
         rhs=torch.tensor(np.asarray(tree.rhs), dtype=complex_dtype_for(dtype), device=device),
         listen_idx=index(tree.listen_idx),
     )
+
+
+def sweep_statics_from_numpy(tree, device=None, dtype=None) -> SweepStatics:
+    """Port the dense BEM sweep's ``SweepStatics`` from the reference's
+    numpy-leaved tree, reading its fields by name; ``dtype`` is the real
+    dtype (default float32)."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    return SweepStatics(*(
+        torch.tensor(np.asarray(getattr(tree, f)), dtype=dtype, device=device)
+        for f in SweepStatics._fields
+    ))

@@ -1,5 +1,5 @@
-"""Host-side mesh container + the structured box generator
-(counterpart of mathaudio_tpu/fem/mesh.py; pure numpy).
+"""Host-side mesh container, the structured box generator and the
+icosphere surface (counterpart of mathaudio_tpu/fem/mesh.py; pure numpy).
 
 Boundary detection counts faces once (lexsort, no hash maps). Box tags:
 1=x_min, 2=x_max, 3=y_min, 4=y_max, 5=z_min, 6=z_max.
@@ -128,3 +128,46 @@ def box_mesh_tetrahedra(x_min, x_max, y_min, y_max, z_min, z_max, nx, ny, nz) ->
 
 def unit_cube_tetrahedra(n: int) -> Mesh:
     return box_mesh_tetrahedra(0.0, 1.0, 0.0, 1.0, 0.0, 1.0, n, n, n)
+
+
+def _icosphere_surface(subdivisions: int):
+    """Icosphere vertices/faces on the unit sphere (shared with BEM)."""
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [
+            [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+            [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+            [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+        ],
+        float,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        np.int64,
+    )
+    for _ in range(subdivisions):
+        edge_mid = {}
+        new_faces = []
+        verts_list = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = verts_list[a] + verts_list[b]
+                m = m / np.linalg.norm(m)
+                edge_mid[key] = len(verts_list)
+                verts_list.append(m)
+            return edge_mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, np.int64)
+    return verts, faces

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
@@ -75,6 +76,14 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_all(names) -> list:
+    """Build several kernels at once: one nvcc per source, all started
+    together. Returns their library paths; raises the first failure."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = [pool.submit(build, name) for name in names]
+        return [f.result() for f in futures]
 
 
 def load(name: str) -> ctypes.CDLL:

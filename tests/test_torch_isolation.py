@@ -29,6 +29,8 @@ def test_port_files_found():
     assert "chip_smoke.py" in names
     assert "mathaudio_tpu_torch/fem/dia.py" in names
     assert "mathaudio_tpu_torch/models/room_sweep_nm.py" in names
+    assert "mathaudio_tpu_torch/ops/bem_assembly.py" in names
+    assert "mathaudio_tpu_torch/bem/sweep.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -40,7 +42,7 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, mathaudio_tpu_torch, mathaudio_tpu_torch.convert, "
-        "mathaudio_tpu_torch.models.room_sweep_nm; "
+        "mathaudio_tpu_torch.models.room_sweep_nm, mathaudio_tpu_torch.bem.sweep; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
