@@ -17,6 +17,17 @@ assembly, Jacobi-preconditioned GMRES (restart 16, tol 1e-5, at most 64
 iterations), complex64: rigid (double-layer kernel), then Burton–Miller
 (beta = 4i/(k + 1/h); Burton–Miller kernel).
 
+Path 3 is the single-frequency dense BEM at full width, on the same
+icosphere (N=5120), complex64, through BemSolver, BemSolution and
+solve_room_bem: (a) the mixed pulsating sphere at ka = 1 (velocity 1 on the
+upper hemisphere, the analytic pressure on the lower), Burton–Miller,
+Jacobi-GMRES at tolerance 1e-5 (the config's default 1e-8 is below what
+complex64 resolves), then the field at 8192 points on r = 2; (b) the
+radiating sphere at ka = 1 without Burton–Miller; (c) the rigid sphere at
+ka = 2 under a plane wave with Burton–Miller, then the field at the same
+points; (d) the interior cavity at ka = 1 with a central monopole, LU, then
+the field at 512 interior points.
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -38,7 +49,24 @@ Phases, each fatal on failure:
 7. check the BEM answers: at N=1280 with 4 wavenumbers the sweep with the
    kernels vs with the twins on the card and GMRES vs LU (<= 1e-4), and at
    N=320 in float64 the card vs the CPU, LU and GMRES (<= 1e-9).
-With ``--profile``, once every phase has passed, one more sweep of each
+8. hold the mixed (off the diagonal) and Kirchhoff-Helmholtz (whole)
+   kernel variants against their twins: float32 <= 1e-5 per plane at the
+   shapes path 3 launches them at (5120 x 5120; the field of 8192 points
+   as one launch of 8192 x 5120; the cavity's 512 x 5120; one wavenumber)
+   and at a ragged 300 x 333 shape with 3 wavenumbers, float64 <= 1e-12 at
+   N=320; time them at each of the path's shapes;
+9. run path 3 (a)-(d), each with the counts set to 0 just before and read
+   just after (its kernels must have launched, each field evaluation as
+   the one launch phase 8 held), gated against the closed
+   forms written out below (relative L2: (a) surface pressure, dp/dn and
+   field <= 2e-2; (b) surface pressure <= 5e-2; (c) finite, residual
+   ||A p - b||/||b|| <= 1e-4; (d) wall pressure and interior field <= 2e-2),
+   GMRES converged; print assembly, solve and field milliseconds (medians of
+   3 synchronised repeats), GMRES iterations and peak device memory;
+10. check path 3's answers: at N=1280 (a) and (d) with the kernels vs with
+   the twins on the card (<= 1e-4 of max|p|), and at N=320 in float64 the
+   card vs the CPU (<= 1e-9).
+With ``--profile``, once every phase has passed, one more run of each
 path runs under torch.profiler and its device time is printed by kernel
 group and kernel, with the device's idle share of the wall time.
 
@@ -80,11 +108,34 @@ BEM_SOURCE = "mathaudio_tpu_torch/kernels/bem_pairwise.cu"
 BEM_KERNELS = {  # variant: (name in the kernels line, TPU kernel replaced)
     "double_layer": ("bem_double_layer", "mathaudio_tpu/ops/bem_assembly.py:43"),
     "burton_miller": ("bem_burton_miller", "mathaudio_tpu/ops/bem_assembly.py:182"),
+    "mixed": ("bem_mixed", "mathaudio_tpu/ops/bem_assembly.py:321"),
+    "mixed_bm": ("bem_mixed_bm", "mathaudio_tpu/ops/bem_assembly.py:321"),
+    "kh": ("bem_kh", "mathaudio_tpu/ops/bem_assembly.py:504"),
+    "kh_double": ("bem_kh_double", "mathaudio_tpu/ops/bem_assembly.py:504"),
 }
+SWEEP_VARIANTS = ("double_layer", "burton_miller")
+MIXED_VARIANTS = ("mixed", "mixed_bm")
+FIELD_VARIANTS = ("kh", "kh_double")
 # Operations kernels/bem_pairwise.cu does (each add, multiply, compare,
 # sin, cos and rsqrt counted as one): per (i, j) pair, per (i, j, q) and
-# per (i, j, q, k); Burton-Miller also forms k^2 once per (i, j, k).
-BEM_OPS = {"double_layer": (0, 22, 13), "burton_miller": (5, 39, 26)}
+# per (i, j, q, k); the hypersingular variants also form k^2 once per
+# (i, j, k).
+BEM_OPS = {"double_layer": (0, 22, 13), "burton_miller": (5, 39, 26), "mixed": (0, 23, 17),
+           "mixed_bm": (5, 41, 40), "kh": (0, 21, 17), "kh_double": (0, 20, 13)}
+# What a variant reads and writes: (reads nx, complex (F, Ni, Nj) planes,
+# real (Ni, Nj) planes), and the names of the planes its wrapper returns.
+BEM_IO = {"double_layer": (False, 1, 1), "burton_miller": (True, 2, 2), "mixed": (False, 2, 1),
+          "mixed_bm": (True, 4, 2), "kh": (False, 2, 0), "kh_double": (False, 1, 0)}
+BEM_PLANES = {"double_layer": ("D_k", "D_0"), "burton_miller": ("D_k", "D_0", "T_k", "T_0"),
+              "mixed": ("D_k", "D_0", "S_k", None, None, None),
+              "mixed_bm": ("D_k", "D_0", "S_k", "T_k", "T_0", "K'_k"),
+              "kh": ("S_k", "D_k"), "kh_double": (None, "D_k")}
+
+PATH3_KA = 1.0
+PATH3_GMRES_TOL = 1e-5
+FIELD_SHAPE = (64, 128)  # 8192 points on r = 2
+CAVITY_SHAPE = (16, 32)  # 512 points on r = 0.5, inside the cavity
+RHO, C_SOUND = 1.204, 343.0
 
 
 def log(msg: str) -> None:
@@ -319,11 +370,11 @@ def bem_bound(variant, ni, nj, nq, nf, rdtype):
     import torch
 
     rb = torch.empty((), dtype=rdtype).element_size()
-    bm = variant == "burton_miller"
-    inputs = (3 * ni * (2 if bm else 1) + nj * (3 * nq + 3 + nq) + nf) * rb
-    outputs = (2 if bm else 1) * (2 * nf + 1) * ni * nj * rb
+    reads_nx, complex_planes, real_planes = BEM_IO[variant]
+    inputs = (3 * ni * (2 if reads_nx else 1) + nj * (3 * nq + 3 + nq) + nf) * rb
+    outputs = (2 * nf * complex_planes + real_planes) * ni * nj * rb
     per_pair, per_point, per_point_k = BEM_OPS[variant]
-    ops = ni * nj * (per_pair + (nf if bm else 0) + nq * (per_point + per_point_k * nf))
+    ops = ni * nj * (per_pair + (nf if reads_nx else 0) + nq * (per_point + per_point_k * nf))
     t_bytes = (inputs + outputs) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[str(rdtype).replace("torch.", "")] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -336,9 +387,43 @@ def twin_pairwise(ops):
     def pairwise(variant, x, nx, yq, ny, w, ks):
         if variant == "burton_miller":
             return ops.pairwise_bm_ref(x, nx, yq, ny, w, ks)
+        if variant in MIXED_VARIANTS:
+            # the twin's pair kernels read nx in every variant
+            return ops.pairwise_mixed_ref(x, x if nx is None else nx, yq, ny, w, ks,
+                                          variant == "mixed_bm")
+        if variant in FIELD_VARIANTS:
+            return ops.pairwise_kh_ref(x, yq, ny, w, ks, variant == "kh")
         return ops.pairwise_double_layer_ref(x, yq, ny, w, ks)
 
     return pairwise
+
+
+def compare_planes(label, variant, got, ref, tol, off_diagonal):
+    """Relative Frobenius error of each plane of ``variant`` against its
+    twin's (off the diagonal where the surface's own points make the
+    i == j sums singular); returns the largest absolute error."""
+    import torch
+
+    worst_abs = 0.0
+    for plane, g, r in zip(BEM_PLANES[variant], got, ref):
+        if plane is None:
+            if g is not None or r is not None:
+                raise AssertionError(f"{label} {variant}: a plane it does not have came back")
+            continue
+        if off_diagonal:
+            g, r = _zero_diagonal(g), _zero_diagonal(r)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label} {variant} {plane}: non-finite entries")
+        diff = g - r
+        rel = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(r))
+        max_abs = float(torch.max(torch.abs(diff)))
+        log(f"kernel {label} {variant} {plane}: {'off-diagonal ' if off_diagonal else ''}"
+            f"rel err {rel:.3e} (tol {tol:g}), max abs err {max_abs:.3e}")
+        if rel > tol:
+            raise AssertionError(f"{label} {variant} {plane}: kernel disagrees with its twin ({rel:.3e})")
+        worst_abs = max(worst_abs, max_abs)
+        del diff
+    return worst_abs
 
 
 def _zero_diagonal(t):
@@ -365,25 +450,11 @@ def bem_kernel_phase(ops, statics, statics64, dev):
         got = ops.bem_pairwise(variant, *a)
         ref = twin(variant, *a)
         torch.cuda.synchronize()
-        worst_abs = 0.0
-        for plane, g, r in zip(("D_k", "D_0", "T_k", "T_0"), got, ref):
-            g, r = _zero_diagonal(g), _zero_diagonal(r)
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"{label} {variant} {plane}: non-finite entries off the diagonal")
-            diff = g - r
-            rel = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(r))
-            max_abs = float(torch.max(torch.abs(diff)))
-            log(f"kernel {label} {variant} {plane}: off-diagonal rel err {rel:.3e} (tol {tol:g}), "
-                f"max abs err {max_abs:.3e}")
-            if rel > tol:
-                raise AssertionError(f"{label} {variant} {plane}: kernel disagrees with its twin ({rel:.3e})")
-            worst_abs = max(worst_abs, max_abs)
-            del diff
-        return worst_abs
+        return compare_planes(label, variant, got, ref, tol, off_diagonal=True)
 
     records = {}
     n, nq = statics.centers.shape[0], statics.qp.shape[1]
-    for variant in BEM_KERNELS:
+    for variant in SWEEP_VARIANTS:
         a = args(variant, statics, n, BEM_FREQS, torch.float32)
         max_abs = check(f"f32 N={n} F={BEM_FREQS}", variant, a, 1e-5)
         ms = time_ms(lambda: ops.bem_pairwise(variant, *a))
@@ -515,8 +586,9 @@ def bem_answers_phase(ops, dev):
 
 
 def bem_path(dev, counters):
-    """Path 2: the dense BEM sweep. Returns the kernel-line records and
-    the two bench sweeps as callables."""
+    """Paths 2 and 3: the dense BEM sweep and the single-frequency BEM
+    engines. Returns the kernel-line records and the paths' runs as
+    callables for the profiler."""
     import torch
 
     from mathaudio_tpu_torch.bem import sweep
@@ -546,7 +618,399 @@ def bem_path(dev, counters):
     records["burton_miller"]["launches"] = bm["burton_miller"]
 
     bem_answers_phase(ops, dev)
-    return records, {"bem_rigid": run_rigid, "bem_burton_miller": run_bm}
+    runs = {"bem_rigid": run_rigid, "bem_burton_miller": run_bm}
+
+    # 8-10. path 3, the single-frequency BEM engines
+    records.update(single_k_kernel_phase(ops, statics, statics64, dev))
+    del statics, statics64
+    torch.cuda.empty_cache()
+    launches, by_case, runs3 = path3(dev, counters)
+    for variant in MIXED_VARIANTS + FIELD_VARIANTS:
+        records[variant]["launches"] = launches.get(variant, 0)
+    # of the launches of ``kh``, the cavity's are at its own shape
+    records["kh"]["other_shapes"][0]["launches"] = by_case["d"]["kh"]
+    records["kh"]["launches_at_shape"] = records["kh"]["launches"] - by_case["d"]["kh"]
+    for case, variant in (("a", "kh"), ("c", "kh_double"), ("d", "kh")):
+        if by_case[case][variant] != 1:
+            raise AssertionError(f"path 3 ({case}): the field was not one launch of {variant} at the "
+                                 f"shape phase 8 held it at: {by_case[case]}")
+    path3_answers(ops, dev)
+    runs.update(runs3)
+    return records, runs
+
+
+def field_points():
+    from mathaudio_tpu_torch.bem.postprocess import generate_sphere_eval_points
+
+    return generate_sphere_eval_points(2.0, *FIELD_SHAPE)
+
+
+def single_k_kernel_phase(ops, statics, statics64, dev):
+    """Phase 8: the mixed and Kirchhoff-Helmholtz variants vs their twins
+    at path 3's shapes (float32, one wavenumber, timed, with bounds), at a
+    ragged shape with three wavenumbers, and in float64. Returns
+    per-variant records at the path's shapes."""
+    import torch
+
+    twin = twin_pairwise(ops)
+    points = torch.tensor(field_points(), dtype=torch.float32, device=dev)
+    inside = torch.tensor(cavity_inputs(0)[3], dtype=torch.float32, device=dev)
+
+    def args(variant, st, pts, ni, nj, ks):
+        """Mixed variants: the surface's first ni collocation points against
+        its first nj elements; field variants: the first ni of ``pts``."""
+        ks = torch.tensor(ks, dtype=st.centers.dtype, device=dev)
+        if variant in FIELD_VARIANTS:
+            x, nx = pts[:ni].to(st.centers.dtype).contiguous(), None
+        else:
+            x, nx = st.centers[:ni], st.normals[:ni]
+        return x, nx, st.qp[:nj], st.normals[:nj], st.qw[:nj], ks
+
+    def check(label, variant, a, tol):
+        got = ops.bem_pairwise(variant, *a)
+        ref = twin(variant, *a)
+        torch.cuda.synchronize()
+        return compare_planes(label, variant, got, ref, tol,
+                              off_diagonal=variant in MIXED_VARIANTS)
+
+    def held(variant, pts):
+        """One record: ``variant`` at its path's pairs (the surface's own
+        points, or the field points ``pts``, against its N elements), one
+        wavenumber, float32, held against its twin, timed and bounded."""
+        ni = pts.shape[0] if variant in FIELD_VARIANTS else n
+        a = args(variant, statics, pts, ni, n, [PATH3_KA])
+        max_abs = check(f"f32 {ni} x {n} F=1", variant, a, 1e-5)
+        ms = time_ms(lambda: ops.bem_pairwise(variant, *a))
+        plain_ms = time_ms(lambda: twin(variant, *a), batches=3, per_batch=1)
+        b_ms, b_by = bem_bound(variant, ni, n, nq, 1, torch.float32)
+        log(f"  {variant} {ni} x {n}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound")
+        torch.cuda.empty_cache()
+        return dict(shape=f"{ni}x{n}", max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, launches=0)
+
+    records = {}
+    n, nq = statics.centers.shape[0], statics.qp.shape[1]
+    n64 = statics64.centers.shape[0]
+    for variant in MIXED_VARIANTS + FIELD_VARIANTS:
+        # the field of (a) and (c) is one launch at every point; (d) gives
+        # ``kh`` its interior points
+        records[variant] = held(variant, points)
+        if variant == "kh":
+            records[variant]["other_shapes"] = [held(variant, inside)]
+        # ragged rows, columns and frequency groups
+        check("f32 300 x 333 F=3", variant,
+              args(variant, statics, points, 300, 333, [0.5, 1.75, 3.0]), 1e-5)
+        check(f"f64 {n64} x {n64} F=3", variant,
+              args(variant, statics64, points, n64, n64, [0.5, 1.75, 3.0]), 1e-12)
+    return records
+
+
+def pulsating_exact(points, k):
+    """Closed form of the pulsating sphere of radius 1 and unit surface
+    velocity (e^{-i omega t}, outgoing waves):
+    p(r) = i rho c ka/(i ka - 1) (1/r) e^{ik(r - 1)}, at |points|."""
+    import numpy as np
+
+    r = np.linalg.norm(points, axis=-1)
+    return 1j * RHO * C_SOUND * k / (1j * k - 1.0) / r * np.exp(1j * k * (r - 1.0))
+
+
+def cavity_exact(r, k):
+    """Closed form of the rigid spherical cavity of radius 1 with a unit
+    monopole at its centre: G(r) + A j0(kr), with A chosen so that dp/dr
+    vanishes on the wall."""
+    import numpy as np
+
+    gp = (1j * k - 1.0) * np.exp(1j * k) / (4 * np.pi)
+    j0p = (k * np.cos(k) - np.sin(k)) / k**2
+    amp = -gp / (k * j0p)
+    return np.exp(1j * k * r) / (4 * np.pi * r) + amp * np.sin(k * r) / (k * r)
+
+
+def rel_l2(got, want):
+    import numpy as np
+
+    got = got.detach().cpu().numpy() if hasattr(got, "detach") else np.asarray(got)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def median_ms(fn, repeats=3):
+    """Median wall milliseconds of ``fn`` over synchronised repeats."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mixed_pulsating_problem(subdiv):
+    """Path 3 (a): velocity 1 on the upper hemisphere, the analytic
+    pressure on the lower. Returns (problem, upper mask, exact pressure)."""
+    import numpy as np
+
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.bem.solver import BemProblem
+    from mathaudio_tpu_torch.bem.types import BoundaryCondition, PhysicsParams
+
+    mesh = icosphere(1.0, subdiv)
+    exact = pulsating_exact(mesh.centers, PATH3_KA)
+    upper = mesh.centers[:, 2] >= 0.0
+    bc = BoundaryCondition(types=np.where(upper, 0, 1).astype(np.int32),
+                           values=np.where(upper, 1.0 + 0.0j, exact))
+    problem = BemProblem(mesh=mesh, physics=PhysicsParams.from_wave_number(PATH3_KA),
+                         incident=None, bc=bc)
+    return problem, upper, exact
+
+
+def cavity_inputs(subdiv):
+    """Path 3 (d): (mesh, frequency, sources, interior points)."""
+    import math
+
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.bem.postprocess import generate_sphere_eval_points
+    from mathaudio_tpu_torch.common.source import Source
+    from mathaudio_tpu_torch.common.types import Point3D
+
+    f = PATH3_KA * C_SOUND / (2 * math.pi)
+    src = Source.omnidirectional(Point3D(0.0, 0.0, 0.0), 1.0)
+    return icosphere(1.0, subdiv), f, [src], generate_sphere_eval_points(0.5, *CAVITY_SHAPE)
+
+
+def gmres_config(burton_miller):
+    from mathaudio_tpu_torch.bem.types import BemSolverConfig, SolverMethod
+
+    return BemSolverConfig(method=SolverMethod.GMRES, burton_miller=burton_miller,
+                           tolerance=PATH3_GMRES_TOL)
+
+
+def counted(label, counters, run, dev):
+    """``run()`` once with every launch count set to 0 just before and read
+    just after; returns (result, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"path 3 {label}: counted run {seconds:.3f} s, peak memory {peak:.2f} GiB, launches {launches}")
+    return out, launches
+
+
+def need_launches(label, launches, wanted):
+    for variant in wanted:
+        if launches.get(variant, 0) == 0:
+            raise AssertionError(f"path 3 {label} did not launch the {variant} kernel: {launches}")
+
+
+def gate(label, what, err, limit):
+    log(f"path 3 {label}: {what} rel L2 {err:.3e} (limit {limit:g})")
+    if not err <= limit:
+        raise AssertionError(f"path 3 {label}: {what} error {err:.3e} above {limit:g}")
+
+
+def path3(dev, counters, subdiv=BEM_SUBDIV, dtype=None):
+    """Phase 9: the single-frequency BEM paths (a)-(d) through their entry
+    points. Returns (launches summed over the four, launches of each,
+    callables for the profiler)."""
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.bem import assembly, room_acoustics
+    from mathaudio_tpu_torch.bem.solver import BemProblem, BemSolver
+    from mathaudio_tpu_torch.solvers.direct import lu_solve
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
+    from mathaudio_tpu_torch.solvers.preconditioners.basic import jacobi_preconditioner
+
+    dtype = dtype or torch.float32
+    where = dict(dtype=dtype, device=dev)
+    pts = field_points()
+    total, by_case = {}, {}
+
+    def add(case, launches):
+        by_case[case] = launches
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def krylov(a, b):
+        cfg = KrylovConfig(max_iterations=1000, tolerance=PATH3_GMRES_TOL, restart=50)
+        return gmres(a, b, config=cfg, preconditioner=jacobi_preconditioner(torch.diagonal(a)))
+
+    def report(label, solve, assemble, linear, field, info):
+        """The whole solve and the field evaluation through the entry
+        points; beside them the solve's two stages, each timed apart
+        through the functions the entry point calls: ``assemble`` returns
+        the system (A, b), ``linear`` solves it."""
+        t_solve, t_asm = median_ms(solve), median_ms(assemble)
+        a, b = assemble()[:2]
+        t_lin = median_ms(lambda: linear(a, b))
+        del a, b
+        t_field = "none" if field is None else f"{median_ms(field):.2f} ms"
+        log(f"path 3 {label} steady state (medians of 3): solve {t_solve:.2f} ms (assembly alone "
+            f"{t_asm:.2f} ms, linear solve alone {t_lin:.2f} ms: {info.get('method')}, "
+            f"iterations {info.get('iterations', '-')}), field evaluation {t_field}")
+
+    # (a) mixed pulsating sphere, Burton-Miller -> mixed_bm, then the field -> kh
+    problem, upper, exact = mixed_pulsating_problem(subdiv)
+    solver = BemSolver(gmres_config(True), **where)
+    k = problem.physics.wave_number
+
+    def run_a():
+        sol = solver.solve(problem)
+        return sol, sol.evaluate_pressure_field(pts)
+
+    (sol, field), launches = counted("(a) mixed pulsating sphere", counters, run_a, dev)
+    need_launches("(a)", launches, ("mixed_bm", "kh"))
+    add("a", launches)
+    n = problem.mesh.num_elements
+    if not sol.info["converged"]:
+        raise AssertionError(f"path 3 (a): GMRES did not converge: {sol.info}")
+    if tuple(sol.surface_pressure.shape) != (n,) or tuple(field.p_total.shape) != (len(pts),):
+        raise AssertionError("path 3 (a): bad output shapes")
+    p, q = sol.surface_pressure.cpu().numpy(), sol.surface_q.cpu().numpy()
+    gate("(a)", f"surface pressure on {int(upper.sum())} velocity elements",
+         rel_l2(p[upper], exact[upper]), 2e-2)
+    q_exact = np.full(n, 1j * k * C_SOUND * RHO)
+    gate("(a)", f"dp/dn on {int((~upper).sum())} pressure elements",
+         rel_l2(q[~upper], q_exact[~upper]), 2e-2)
+    gate("(a)", f"field at {len(pts)} points on r = 2", rel_l2(field.p_total, pulsating_exact(pts, k)),
+         2e-2)
+    beta = solver.burton_miller_beta(problem)
+    report("(a)", lambda: solver.solve(problem),
+           lambda: assembly.assemble_mixed_system(
+               problem.mesh, k, problem.bc, beta=beta, quad_order=solver.config.quad_order, **where),
+           krylov, lambda: sol.evaluate_pressure_field(pts), sol.info)
+    t_host = median_ms(lambda: assembly._mesh_tensors(problem.mesh, solver.config.quad_order,
+                                                      dtype, dev))
+    log(f"path 3 (a): of the assembly, the mesh tensors (numpy quadrature points and self-element "
+        f"rule, copied to the card) take {t_host:.2f} ms")
+    runs = {"bem_mixed_pulsating": run_a}
+
+    # (b) radiating sphere without Burton-Miller -> mixed
+    prob_b = BemProblem.radiating_sphere(PATH3_KA, subdivisions=subdiv)
+    solver_b = BemSolver(gmres_config(False), **where)
+    sol_b, launches = counted("(b) radiating sphere", counters, lambda: solver_b.solve(prob_b), dev)
+    need_launches("(b)", launches, ("mixed",))
+    add("b", launches)
+    if not sol_b.info["converged"]:
+        raise AssertionError(f"path 3 (b): GMRES did not converge: {sol_b.info}")
+    gate("(b)", "surface pressure", rel_l2(sol_b.surface_pressure,
+                                           pulsating_exact(prob_b.mesh.centers, PATH3_KA)), 5e-2)
+    report("(b)", lambda: solver_b.solve(prob_b),
+           lambda: assembly.assemble_mixed_system(
+               prob_b.mesh, PATH3_KA, prob_b.bc, quad_order=solver_b.config.quad_order, **where),
+           krylov, None, sol_b.info)
+
+    # (c) rigid sphere, Burton-Miller -> burton_miller, then the field -> kh_double
+    prob_c = BemProblem.rigid_sphere(2.0, subdivisions=subdiv)
+    solver_c = BemSolver(gmres_config(True), **where)
+
+    def run_c():
+        s = solver_c.solve(prob_c)
+        return s, s.evaluate_pressure_field(pts)
+
+    (sol_c, field_c), launches = counted("(c) rigid sphere", counters, run_c, dev)
+    need_launches("(c)", launches, ("burton_miller", "kh_double"))
+    add("c", launches)
+    if not sol_c.info["converged"]:
+        raise AssertionError(f"path 3 (c): GMRES did not converge: {sol_c.info}")
+    if not (bool(torch.isfinite(sol_c.surface_pressure).all())
+            and bool(torch.isfinite(field_c.p_total).all())):
+        raise AssertionError("path 3 (c): non-finite pressures")
+    kc, beta_c = prob_c.physics.wave_number, solver_c.burton_miller_beta(prob_c)
+    a = assembly.assemble_burton_miller(prob_c.mesh, kc, beta_c, **where)
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("path 3 (c): the assembled matrix is not finite")
+    centers = torch.tensor(prob_c.mesh.centers, **where)
+    normals = torch.tensor(prob_c.mesh.normals, **where)
+    b = prob_c.incident.pressure(centers, kc) - beta_c * prob_c.incident.normal_derivative(
+        centers, normals, kc)
+    res = float(torch.linalg.vector_norm(a @ sol_c.surface_pressure - b)
+                / torch.linalg.vector_norm(b))
+    del a
+    torch.cuda.empty_cache()
+    gate("(c)", "residual ||A p - b||/||b||", res, 1e-4)
+    report("(c)", lambda: solver_c.solve(prob_c),
+           lambda: (assembly.assemble_burton_miller(prob_c.mesh, kc, beta_c, **where), b),
+           krylov, lambda: sol_c.evaluate_pressure_field(pts), sol_c.info)
+
+    # (d) interior cavity, LU -> mixed, then the interior field -> kh
+    mesh_d, f_d, sources, inside = cavity_inputs(subdiv)
+
+    def run_d():
+        s = room_acoustics.solve_room_bem(mesh_d, f_d, sources, admittance=0.0, method="lu",
+                                          **where)
+        return s, s.evaluate_pressure(inside)
+
+    (sol_d, p_in), launches = counted("(d) interior cavity", counters, run_d, dev)
+    need_launches("(d)", launches, ("mixed", "kh"))
+    add("d", launches)
+    gate("(d)", "wall pressure",
+         rel_l2(sol_d.surface_pressure, np.full(mesh_d.num_elements, cavity_exact(1.0, PATH3_KA))),
+         2e-2)
+    gate("(d)", f"field at {len(inside)} interior points",
+         rel_l2(p_in, cavity_exact(np.linalg.norm(inside, axis=1), PATH3_KA)), 2e-2)
+    def assemble_d():
+        # with the mesh tensors built on the host, as in (a)-(c)
+        t = assembly._mesh_tensors(mesh_d, 3, dtype, dev)
+        return (room_acoustics._room_matrix(*t, sol_d.k, sol_d.admittance),
+                room_acoustics._source_pressure(t[0], sources, sol_d.k, f_d))
+
+    report("(d)", lambda: room_acoustics.solve_room_bem(mesh_d, f_d, sources, method="lu", **where),
+           assemble_d, lu_solve, lambda: sol_d.evaluate_pressure(inside), sol_d.info)
+    runs["bem_room_cavity"] = run_d
+    return total, by_case, runs
+
+
+def path3_answers(ops, dev):
+    """Phase 10: (a) and (d) at N=1280 with the kernels vs with the twins on
+    the card, and at N=320 in float64 on the card vs on the CPU."""
+    import torch
+
+    from mathaudio_tpu_torch.bem import room_acoustics
+    from mathaudio_tpu_torch.bem.solver import BemSolver
+
+    pts = field_points()[::16]
+
+    def answers(subdiv, dtype, where):
+        problem, _, _ = mixed_pulsating_problem(subdiv)
+        sol = BemSolver(gmres_config(True), dtype=dtype, device=where).solve(problem)
+        mesh, f, sources, inside = cavity_inputs(subdiv)
+        room = room_acoustics.solve_room_bem(mesh, f, sources, method="lu", dtype=dtype,
+                                             device=where)
+        return {"(a) surface p": sol.surface_pressure, "(a) surface q": sol.surface_q,
+                "(a) field": sol.evaluate_pressure(pts), "(d) wall p": room.surface_pressure,
+                "(d) interior field": room.evaluate_pressure(inside)}
+
+    def compare(label, got, want, tol):
+        for name in got:
+            g, w = got[name].cpu(), want[name].cpu()
+            err = float(torch.max(torch.abs(g - w)) / torch.max(torch.abs(w)))
+            log(f"path 3 {label} {name}: max err {err:.3e} of max|.| (tol {tol:g})")
+            if not err <= tol:
+                raise AssertionError(f"path 3 {label} {name}: {err:.3e} above {tol:g}")
+
+    with_kernels = answers(3, torch.float32, dev)
+    kernel = ops.bem_pairwise
+    ops.bem_pairwise = twin_pairwise(ops)
+    try:
+        with_twins = answers(3, torch.float32, dev)
+    finally:
+        ops.bem_pairwise = kernel
+    compare("N=1280 kernels vs twins", with_kernels, with_twins, 1e-4)
+    compare("f64 N=320 card vs CPU", answers(2, torch.float64, dev),
+            answers(2, torch.float64, "cpu"), 1e-9)
 
 
 def main() -> int:
@@ -556,9 +1020,14 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one bench sweep of each path (torch.profiler) and print "
+                    help="also profile one run of each path (torch.profiler) and print "
                          "device time by kernel and the device's idle share")
-    profile = ap.parse_args().profile
+    ap.add_argument("--ptxas", action="store_true",
+                    help="also print the registers, shared memory and spills ptxas reports for "
+                         "every kernel of both sources")
+    cli = ap.parse_args()
+    profile = cli.profile
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -586,6 +1055,10 @@ def main() -> int:
         kernels.load(name)
         log(f"build: {name}.cu -> {kernels.library_path(name).name} {'built' if new else 'cached'}")
     log(f"build: {len(sources)} sources in {time.perf_counter() - t0:.2f} s")
+    if cli.ptxas:
+        for name in sources:
+            for line in kernels.ptxas_report(name):
+                log(f"ptxas {name}: {line}")
 
     # host build at the bench shape (float32) and a small float64 one
     t0 = time.perf_counter()
@@ -677,7 +1150,7 @@ def main() -> int:
     if s_err > 1e-9 or not torch.equal(ig, ic) or not bool(cg.all()):
         raise AssertionError("float64 sweep on the card disagrees with the CPU")
 
-    # 5-7. path 2, the dense BEM sweep
+    # 5-10. paths 2 and 3, the dense BEM sweep and the single-frequency engines
     bem_records, bem_runs = bem_path(dev, (dia, bem_assembly))
 
     # profiles last, once every kernel has run
@@ -695,6 +1168,11 @@ def main() -> int:
              **bem_records[variant])
         for variant, (name, replaces) in BEM_KERNELS.items()
     ]}
+    for entry in kernels_line["kernels"]:
+        if entry["launches"] < 1:
+            raise AssertionError(f"kernel {entry['name']} was not launched on its path")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
+        f"(kernel builds included{', with --profile' if profile else ''})")
     print(json.dumps(kernels_line), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
-"""Dense collocation assembly over a band of wavenumbers (counterpart of
-mathaudio_tpu/bem/assembly.py: the pair kernels, the self-element
-angular rule and the regularised row assembly of the frequency sweep).
+"""Dense collocation assembly (counterpart of mathaudio_tpu/bem/assembly.py:
+the pair kernels, the self-element angular rule, the regularised row
+assembly over a band of wavenumbers, and the single-k rigid,
+Burton–Miller and mixed velocity/pressure systems).
 
 Exterior Neumann (rigid) boundary integral equation, time convention
 e^{-i omega t}, G = e^{ikr}/(4 pi r), normals pointing into the fluid:
@@ -17,9 +18,27 @@ replaced by exact static row sums and analytic radial integrals:
 
 where R(phi) is the centroid-to-edge distance along direction phi.
 
-Every function here takes the band ``ks`` (F,) and ``betas`` (F,) and
-returns (F, R, N) blocks: the reference's ``vmap`` over wavenumbers is
-the leading batch dimension.
+The sweep's functions (``_assemble_rows``, ``_assemble``) take the band
+``ks`` (F,) and ``betas`` (F,) and return (F, R, N) blocks: the
+reference's ``vmap`` over wavenumbers is the leading batch dimension. The
+single-k entry points (``assemble_collocation_matrix``,
+``assemble_burton_miller``, ``assemble_mixed_system``) return (N, N).
+
+Mixed velocity/pressure boundary conditions (exterior, e^{-i omega t},
+outgoing G, q = dp/dn):
+
+    CBIE:  (1/2) p - D[p] + S[q] = p_inc
+    HBIE:  (1/2) q - T[p] + K'[q] = dp_inc/dn
+
+combined as CBIE - beta HBIE:
+
+    Ap = 1/2 I - D + beta T        (coefficients of p)
+    Aq = S - beta (1/2 I + K')     (coefficients of q)
+
+with the single-layer self term S_ii = (1/4pi) sum_phi w_phi
+(e^{ikR} - 1)/(ik). A velocity element's column comes from Ap and its
+prescribed q moves to the right-hand side through Aq; a pressure element
+the other way round.
 """
 
 from __future__ import annotations
@@ -31,8 +50,8 @@ import torch
 
 from mathaudio_tpu_torch.bem.mesh import SurfaceMesh
 from mathaudio_tpu_torch.fem.quadrature import gauss_1d
-from mathaudio_tpu_torch.ops.bem_assembly import pairwise_bm, pairwise_double_layer
-from mathaudio_tpu_torch.xtypes import complex_dtype_for
+from mathaudio_tpu_torch.ops.bem_assembly import pairwise_bm, pairwise_double_layer, pairwise_mixed
+from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
 
 
 def _pair_kernels(x, nx, y, ny, k):
@@ -196,3 +215,211 @@ def _assemble(centers, normals, qp, qw, self_r, self_w, ks, betas, with_bm, row_
         out[:, r0:r1] = _assemble_rows(centers[r0:r1], normals[r0:r1], r0, self_r[r0:r1],
                                        self_w[r0:r1], normals, qp, qw, ks, betas, with_bm)
     return out
+
+
+# Real output planes the pairwise kernel writes per (i, j) pair at F = 1.
+_PLANES = {"double_layer": 3, "burton_miller": 6, "mixed": 5, "mixed_bm": 10, "kh": 4,
+           "kh_double": 2}
+_ONE_SHOT_BYTES = 4 * 1024**3
+
+
+def _resolve_row_block(row_block, n: int, nq: int, like: torch.Tensor, variant: str,
+                       rows=None) -> int:
+    """Rows per chunk of ``rows`` points (default N, the surface's own)
+    against N elements. An explicit ``row_block`` is taken as it is. None
+    sizes it: on the CPU as the reference does (every row up to N = 2048,
+    else ``_auto_row_block``); on the GPU, where the kernel holds no
+    (R, N, nq) buffer, by the pairwise planes alone: one shot while they
+    fit 4 GiB, else the largest power of two of rows that does."""
+    if row_block is not None:
+        return int(row_block)
+    if like.device.type != "cuda":
+        return _auto_row_block(n, nq)
+    rows = n if rows is None else rows
+    fit = _ONE_SHOT_BYTES // (n * _PLANES[variant] * like.element_size())
+    return rows if fit >= rows else max(64, 1 << (int(fit).bit_length() - 1))
+
+
+def _mesh_tensors(mesh: SurfaceMesh, quad_order: int, dtype, device):
+    """(centers, normals, qp, qw, self_r, self_w) of ``mesh`` on ``device``."""
+    qp, qw = mesh.quad_points(quad_order)
+    self_r, self_w = _self_angular_rule(mesh)
+    return tuple(torch.tensor(a, dtype=dtype, device=device)
+                 for a in (mesh.centers, mesh.normals, qp, qw, self_r, self_w))
+
+
+def assemble_collocation_matrix(mesh: SurfaceMesh, k: float, quad_order: int = 3, dtype=None,
+                                row_block=None, device=None):
+    """(1/2)I - D: plain CBIE collocation matrix (N, N) complex, on
+    ``device`` (default ``cuda``; raises without a GPU). ``row_block``:
+    rows per assembly chunk (None sizes it, see ``_resolve_row_block``)."""
+    dtype = dtype or default_float()
+    t = _mesh_tensors(mesh, quad_order, dtype, resolve_device(device))
+    ks = torch.tensor([k], dtype=dtype, device=t[0].device)
+    betas = torch.zeros(1, dtype=complex_dtype_for(dtype), device=t[0].device)
+    rb = _resolve_row_block(row_block, mesh.num_elements, t[2].shape[1], t[0], "double_layer")
+    return _assemble(*t, ks, betas, False, rb)[0]
+
+
+def assemble_burton_miller(mesh: SurfaceMesh, k: float, beta: complex, quad_order: int = 3,
+                           dtype=None, row_block=None, device=None):
+    """(1/2)I - D + beta T: Burton–Miller collocation matrix (N, N)."""
+    dtype = dtype or default_float()
+    t = _mesh_tensors(mesh, quad_order, dtype, resolve_device(device))
+    ks = torch.tensor([k], dtype=dtype, device=t[0].device)
+    betas = torch.tensor([beta], dtype=complex_dtype_for(dtype), device=t[0].device)
+    rb = _resolve_row_block(row_block, mesh.num_elements, t[2].shape[1], t[0], "burton_miller")
+    return _assemble(*t, ks, betas, True, rb)[0]
+
+
+def _self_sums(sr, sw, k: float):
+    """Analytic radial self terms per row: (S_ii, the self term of
+    T_k - T_0) = (1/4pi) sum_phi w ((e^{ikR} - 1)/(ik), ik - (e^{ikR} - 1)/R)."""
+    cd = complex_dtype_for(sr.dtype)
+    ik = 1j * k
+    rr, ww = sr.to(cd), sw.to(cd)
+    e1 = torch.exp(ik * rr) - 1.0
+    s_self = torch.sum(ww * e1 / ik, dim=1) / (4.0 * math.pi)
+    t_self = torch.sum(ww * (ik - e1 / rr), dim=1) / (4.0 * math.pi)
+    return s_self, t_self
+
+
+def _mixed_rows(x_c, x_n, row0, sr, sw, normals, qp, qw, k, beta, unknown_p, p_known,
+                q_known, adm, rhs_inc_rows, with_bm):
+    """(R, N) block of the mixed system and its right-hand-side rows, for
+    the collocation rows ``row0 .. row0 + R - 1``.
+
+    The quadrature sums come from ``pairwise_mixed`` (the hand-written
+    kernel on the GPU); this function does the row-local regularisation,
+    the self terms and the BC column combination, in place in the sums'
+    buffers: Ap is built in T_k's buffer (D_k's without Burton–Miller), Aq
+    in S_k's, and A in Ap's, so no further (R, N) tensor exists. The
+    singular i == j sums (inf in float32 for T_k) are never multiplied by
+    a mask: the static planes' diagonals are zeroed through a diagonal
+    view before the row sums, and the diagonals of Ap and Aq are written
+    through the view."""
+    cd = complex_dtype_for(x_c.dtype)
+    rows = x_c.shape[0]
+    ik = 1j * k
+
+    def diagonal(t):
+        """View of the block's diagonal entries (i, row0 + i), shape (R,)."""
+        return torch.diagonal(t[..., row0:row0 + rows], dim1=-2, dim2=-1)
+
+    ks = torch.tensor([k], dtype=x_c.dtype, device=x_c.device)
+    dk, d0s, sk, tk, t0s, kpk = pairwise_mixed(x_c, x_n, qp, normals, qw, ks, with_bm)
+    s_self, t_self = _self_sums(sr, sw, k)
+
+    # Ap = 1/2 I - D (+ beta T): regularised as in _assemble_rows
+    diagonal(d0s).zero_()
+    ap_diag = (1.0 + torch.sum(d0s, dim=1)).to(cd)  # 1/2 - (-1/2 - sum_j D_0)
+    aq_diag = s_self
+    if with_bm:
+        diagonal(t0s).zero_()
+        ap_diag = ap_diag + beta * (t_self - torch.sum(t0s, dim=1).to(cd))
+        ap = tk[0].mul_(beta).sub_(dk[0])
+        # Aq = S - beta (1/2 I + K'); the flat-element self term of K' is 0
+        aq = sk[0].sub_(kpk[0].mul_(beta))
+        aq_diag = aq_diag - 0.5 * beta
+    else:
+        ap = dk[0].neg_()
+        aq = sk[0]
+    diagonal(ap).copy_(ap_diag)
+    diagonal(aq).copy_(aq_diag)
+
+    # Surface admittance couples q back to the unknown p on velocity
+    # elements: q = i omega rho v_n - i k adm p, so the -ik adm part of the
+    # q coefficient lands in the p column.
+    m = unknown_p.to(cd)  # 1 where p is the unknown (velocity BC)
+    b = rhs_inc_rows - aq @ (q_known * m) - ap @ (p_known * (1.0 - m))
+    # a = (ap + aq (-ik adm)) m + aq (1 - m), column by column, in place
+    ap.mul_(m[None, :])
+    aq.mul_(((-ik * adm) * m + (1.0 - m))[None, :])
+    return ap.add_(aq), b
+
+
+def _assemble_mixed(centers, normals, qp, qw, self_r, self_w, k, beta, unknown_p, p_known,
+                    q_known, adm, rhs_inc, with_bm, row_block=0):
+    """(A (N, N), b (N,)) of the mixed system; ``row_block > 0`` assembles
+    (row_block, N) row chunks in a loop into the outputs, the last chunk
+    ragged (the reference pads it)."""
+    n = centers.shape[0]
+    if row_block <= 0 or row_block >= n:
+        return _mixed_rows(centers, normals, 0, self_r, self_w, normals, qp, qw, k, beta,
+                           unknown_p, p_known, q_known, adm, rhs_inc, with_bm)
+    cd = complex_dtype_for(centers.dtype)
+    a = torch.empty((n, n), dtype=cd, device=centers.device)
+    b = torch.empty((n,), dtype=cd, device=centers.device)
+    for r0 in range(0, n, row_block):
+        r1 = min(n, r0 + row_block)
+        a[r0:r1], b[r0:r1] = _mixed_rows(
+            centers[r0:r1], normals[r0:r1], r0, self_r[r0:r1], self_w[r0:r1], normals, qp, qw,
+            k, beta, unknown_p, p_known, q_known, adm, rhs_inc[r0:r1], with_bm)
+    return a, b
+
+
+def bc_vectors(bc, k: float, density: float, speed_of_sound: float, cd, device):
+    """(unknown_p bool (N,), p_known, q_known, adm) of a BoundaryCondition
+    as tensors: prescribed velocities become dp/dn = i omega rho v_n
+    (e^{-i omega t}); ``adm`` is zero without an admittance."""
+    bc_types = np.asarray(bc.types, np.int32)
+    bc_values = np.asarray(bc.values, complex)
+    n = bc_types.shape[0]
+    if bc_values.shape != (n,):
+        raise ValueError(f"boundary values have shape {bc_values.shape}, expected ({n},)")
+    omega = k * speed_of_sound
+    q_known = np.where(bc_types == 0, 1j * omega * density * bc_values, 0.0)
+    p_known = np.where(bc_types == 1, bc_values, 0.0)
+    adm = getattr(bc, "admittance", None)
+    adm = np.zeros(n, complex) if adm is None else np.broadcast_to(np.asarray(adm, complex), (n,))
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=cd, device=device)
+
+    return (torch.tensor(bc_types == 0, device=device), tensor(p_known), tensor(q_known),
+            tensor(adm))
+
+
+def assemble_mixed_system(mesh: SurfaceMesh, k: float, bc, beta: complex = 0.0, incident=None,
+                          quad_order: int = 4, density: float = 1.204,
+                          speed_of_sound: float = 343.0, dtype=None, row_block=None,
+                          device=None):
+    """Dense BEM system for per-element velocity/pressure BCs, on
+    ``device`` (default ``cuda``; raises without a GPU).
+
+    Returns (A, b, unknown_p) where the solution vector of A u = b holds
+    the surface pressure on velocity elements and dp/dn on pressure
+    elements (``unknown_p``, a numpy bool array, marks which).
+    ``incident=None`` is a pure radiation problem; with an incident field
+    the unknowns are total-field quantities. Burton–Miller runs when
+    ``beta != 0``."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    cd = complex_dtype_for(dtype)
+    n = mesh.num_elements
+    if np.shape(bc.types) != (n,):
+        raise ValueError(f"boundary types have shape {np.shape(bc.types)}, expected ({n},)")
+    unknown_p, p_known, q_known, adm = bc_vectors(bc, k, density, speed_of_sound, cd, device)
+    centers, normals, qp, qw, self_r, self_w = _mesh_tensors(mesh, quad_order, dtype, device)
+    with_bm = beta != 0.0
+    if incident is not None:
+        rhs_inc = incident.pressure(centers, k)
+        if with_bm:
+            rhs_inc = rhs_inc - beta * incident.normal_derivative(centers, normals, k)
+    else:
+        rhs_inc = torch.zeros(n, dtype=cd, device=device)
+    rb = _resolve_row_block(row_block, n, qp.shape[1], centers,
+                            "mixed_bm" if with_bm else "mixed")
+    a, b = _assemble_mixed(centers, normals, qp, qw, self_r, self_w, k, beta, unknown_p,
+                           p_known, q_known, adm, rhs_inc, with_bm, rb)
+    return a, b, np.asarray(bc.types) == 0
+
+
+def single_layer_self_terms(mesh: SurfaceMesh, k: float, dtype=None, device=None):
+    """S_ii = (1/4pi) sum w (e^{ikR} - 1)/(ik): the weakly singular self
+    integral of G, analytic radial part (used by Dirichlet problems)."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    self_r, self_w = _self_angular_rule(mesh)
+    return _self_sums(torch.tensor(self_r, dtype=dtype, device=device),
+                      torch.tensor(self_w, dtype=dtype, device=device), k)[0]

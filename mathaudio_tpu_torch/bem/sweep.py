@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from mathaudio_tpu_torch.bem.assembly import _assemble, _auto_row_block, _self_angular_rule
+from mathaudio_tpu_torch.bem.assembly import _assemble, _auto_row_block, _mesh_tensors
 from mathaudio_tpu_torch.bem.incident import IncidentField
 from mathaudio_tpu_torch.bem.mesh import SurfaceMesh
 from mathaudio_tpu_torch.solvers.direct import complex_solve
@@ -42,14 +42,8 @@ class SweepStatics(NamedTuple):
 def sweep_statics(mesh: SurfaceMesh, quad_order: int = 3, dtype=None, device=None) -> SweepStatics:
     """The mesh's statics as ``dtype`` (default float32) tensors on
     ``device`` (default ``cuda``; raises without a GPU)."""
-    dtype = dtype or default_float()
-    device = resolve_device(device)
-    qp, qw = mesh.quad_points(quad_order)
-    self_r, self_w = _self_angular_rule(mesh)
-    return SweepStatics(*(
-        torch.tensor(a, dtype=dtype, device=device)
-        for a in (mesh.centers, mesh.normals, qp, qw, self_r, self_w)
-    ))
+    return SweepStatics(*_mesh_tensors(mesh, quad_order, dtype or default_float(),
+                                       resolve_device(device)))
 
 
 def _solve_gmres(a, r, gmres_tol: float, gmres_restart: int):

@@ -8,6 +8,14 @@ on ``device``. It reads fields by name and never imports JAX. The static
 DIA offsets are rebuilt from each level's ``row_of_slot``/``col_of_slot``.
 ``sweep_statics_from_numpy`` does the same for the dense BEM sweep's
 ``SweepStatics``.
+
+For the single-frequency BEM engines the state is smaller: a surface mesh
+(nodes, elements), per-element boundary data, and a solved surface field.
+``surface_mesh_from_numpy``, ``boundary_condition_from_numpy``,
+``bem_solution_from_numpy`` and ``room_bem_solution_from_numpy`` build
+the port's objects from those arrays, so both packages can be fed the
+same data and the port can evaluate the field from the reference's
+surface solution.
 """
 
 from __future__ import annotations
@@ -15,7 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mathaudio_tpu_torch.bem.mesh import SurfaceMesh
+from mathaudio_tpu_torch.bem.room_acoustics import RoomBemSolution
+from mathaudio_tpu_torch.bem.solver import BemProblem, BemSolution
 from mathaudio_tpu_torch.bem.sweep import SweepStatics
+from mathaudio_tpu_torch.bem.types import BoundaryCondition
 from mathaudio_tpu_torch.fem.dia import DiaTables, dia_pattern
 from mathaudio_tpu_torch.fem.multigrid import MgBuilder, MgBuilderLevel
 from mathaudio_tpu_torch.fem.multigrid_batched import DiaLevel
@@ -86,3 +98,49 @@ def sweep_statics_from_numpy(tree, device=None, dtype=None) -> SweepStatics:
         torch.tensor(np.asarray(getattr(tree, f)), dtype=dtype, device=device)
         for f in SweepStatics._fields
     ))
+
+
+def surface_mesh_from_numpy(nodes, elements) -> SurfaceMesh:
+    """Port ``SurfaceMesh`` from the reference's (Nn, 3) nodes and (N, 3)
+    triangle connectivity (orientation kept as given)."""
+    return SurfaceMesh(np.array(nodes, float), np.array(elements, np.int64))
+
+
+def boundary_condition_from_numpy(types, values, admittance=None) -> BoundaryCondition:
+    """Port ``BoundaryCondition`` from the reference's per-element arrays."""
+    return BoundaryCondition(
+        types=np.array(types, np.int32),
+        values=np.array(values, complex),
+        admittance=None if admittance is None else np.array(admittance, complex),
+    )
+
+
+def bem_solution_from_numpy(problem: BemProblem, surface_pressure, surface_q=None, info=None,
+                            device=None, dtype=None) -> BemSolution:
+    """Port ``BemSolution`` holding the reference's surface pressure (and
+    dp/dn for non-rigid problems) on ``device``; ``dtype`` is the real
+    dtype (default float32), the fields become its complex dtype."""
+    cd = complex_dtype_for(dtype or default_float())
+    device = resolve_device(device)
+
+    def field(a):
+        return None if a is None else torch.tensor(np.asarray(a), dtype=cd, device=device)
+
+    return BemSolution(problem, field(surface_pressure), dict(info or {}), field(surface_q))
+
+
+def room_bem_solution_from_numpy(mesh: SurfaceMesh, k: float, frequency: float,
+                                 surface_pressure, admittance, sources, info=None,
+                                 device=None, dtype=None) -> RoomBemSolution:
+    """Port ``RoomBemSolution`` holding the reference's wall pressure and
+    per-element admittance on ``device``; ``sources`` are the port's."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    n = mesh.num_elements
+    return RoomBemSolution(
+        mesh, float(k), float(frequency),
+        torch.tensor(np.asarray(surface_pressure), dtype=complex_dtype_for(dtype), device=device),
+        torch.tensor(np.broadcast_to(np.asarray(admittance, float), (n,)).copy(), dtype=dtype,
+                     device=device),
+        list(sources), dict(info or {}),
+    )

@@ -78,6 +78,47 @@ def build(name: str) -> Path:
     return out
 
 
+def ptxas_report(name: str) -> list:
+    """What ``ptxas -v`` says of every kernel in ``<name>.cu``: one line
+    per kernel with its (demangled) name, registers, shared memory and
+    spills. Compiles the source once more, to a throw-away cubin."""
+    src = KERNEL_DIR / f"{name}.cu"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".cubin", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-cubin", "-Xptxas", "-v", "-o", tmp, str(src)],
+            capture_output=True, text=True,
+        )
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
+    lines, kernel = [], None
+    for line in proc.stderr.splitlines():
+        line = line.replace("ptxas info    : ", "").strip()
+        if line.startswith("Compiling entry function"):
+            kernel = line.split("'")[1]
+        elif line.startswith("Function properties for") and kernel is None:
+            continue
+        elif kernel and ("spill" in line or line.startswith("Used")):
+            lines.append(f"{_demangle(kernel)}: {line}")
+            if line.startswith("Used"):
+                kernel = None
+    return lines
+
+
+def _demangle(symbol: str) -> str:
+    found = shutil.which("c++filt")
+    if not found:
+        return symbol
+    out = subprocess.run([found, symbol], capture_output=True, text=True).stdout.strip()
+    return out or symbol
+
+
 def build_all(names) -> list:
     """Build several kernels at once: one nvcc per source, all started
     together. Returns their library paths; raises the first failure."""

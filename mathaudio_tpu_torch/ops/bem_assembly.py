@@ -1,17 +1,23 @@
-"""Pairwise BEM quadrature sums of the dense collocation assembly
-(counterpart of mathaudio_tpu/ops/bem_assembly.py, double-layer and
-Burton–Miller sets).
+"""Pairwise BEM quadrature sums of the dense collocation assembly and
+of the Kirchhoff–Helmholtz field evaluation (counterpart of
+mathaudio_tpu/ops/bem_assembly.py).
 
-For collocation points x_i and elements j (quadrature points yq, weights
-w, normals ny) over a band of wavenumbers ``ks`` (F,):
+For points x_i (collocation points with normals nx, or field points) and
+elements j (quadrature points yq, weights w, normals ny) over a band of
+wavenumbers ``ks`` (F,):
 
 - ``pairwise_double_layer`` -> (D_k (F, Ni, Nj) complex, D_0 (Ni, Nj) real)
 - ``pairwise_bm``           -> (D_k, D_0, T_k (F, Ni, Nj), T_0 (Ni, Nj))
+- ``pairwise_mixed``        -> (D_k, D_0, S_k, T_k, T_0, K'_k); the last
+                               three are None without ``with_bm``
+- ``pairwise_kh``           -> (S_k, D_k); S_k is None without
+                               ``want_single``
 
-with D the double layer sum_q w dG/dn_y, T the hypersingular
-sum_q w n_x.grad_x(n_y.grad_y G) and the 0 subscripts their Laplace
-limits, which do not depend on k and come back once. The reference's
-``vmap`` over wavenumbers is the leading F dimension here.
+with D the double layer sum_q w dG/dn_y, S the single layer sum_q w G, T
+the hypersingular sum_q w n_x.grad_x(n_y.grad_y G), K' the adjoint double
+layer sum_q w dG/dn_x, and the 0 subscripts the Laplace limits, which do
+not depend on k and come back once. The reference's ``vmap`` over
+wavenumbers (or its single k) is the leading F dimension here.
 
 Each dispatches by device only: a CUDA tensor launches the hand-written
 Hopper kernel (kernels/bem_pairwise.cu), a CPU tensor runs the plain
@@ -32,7 +38,15 @@ from mathaudio_tpu_torch.xtypes import complex_dtype_for
 
 MAX_QUAD = 16  # kernels/bem_pairwise.cu kMaxQuad
 _PI4 = 4.0 * math.pi
-_VARIANTS = ("double_layer", "burton_miller")
+# variant: (number in kernels/bem_pairwise.cu, takes nx, D_0, S_k, T_k (+ T_0), K'_k)
+_VARIANTS = {
+    "double_layer": (0, False, True, False, False, False),
+    "burton_miller": (1, True, True, False, True, False),
+    "mixed": (2, False, True, True, False, False),
+    "mixed_bm": (3, True, True, True, True, True),
+    "kh": (4, False, False, True, False, False),
+    "kh_double": (5, False, False, False, False, False),
+}
 
 # Launches of the CUDA kernel per variant since the last reset. A run
 # proves it went through the kernel by reading these; the twins never count.
@@ -47,8 +61,9 @@ def reset_launches() -> None:
 # --------------------------------------------------------------------------
 # Plain PyTorch twins: the CPU path, and the yardstick the kernel is held
 # against on the card. They mirror the reference's XLA forms
-# (pairwise_double_layer_xla, pairwise_bm_xla) with the quadrature sum as
-# a loop, so only (F, Ni, Nj) intermediates ever exist.
+# (pairwise_double_layer_xla, pairwise_bm_xla, pairwise_mixed_xla,
+# pairwise_kh_xla) with the quadrature sum as a loop, so only (F, Ni, Nj)
+# intermediates ever exist.
 # --------------------------------------------------------------------------
 
 
@@ -100,12 +115,77 @@ def pairwise_bm_ref(x, nx, yq, ny, w, ks):
     return dk, d0, tk, t0
 
 
+def _green(x, y, k, cd):
+    """(rv, rs, G = e^{ik rs}/(4 pi rs)) for broadcast points, with the
+    reference's guard rs = 1 where r < 1e-15."""
+    rv = y - x
+    r = torch.sqrt(torch.sum(rv * rv, dim=-1))
+    rs = torch.where(r < 1e-15, 1.0, r)
+    return rv, rs, torch.exp(1j * (k * rs).to(cd)) / (_PI4 * rs)
+
+
+def pairwise_mixed_ref(x, nx, yq, ny, w, ks, with_bm: bool):
+    """(D_k, D_0, S_k, T_k, T_0, K'_k); the last three None without
+    ``with_bm``. k-dependent planes (F, Ni, Nj) complex, D_0/T_0 (Ni, Nj)."""
+    from mathaudio_tpu_torch.bem.assembly import _pair_kernels, _static_pair_kernels
+
+    cd = complex_dtype_for(x.dtype)
+    k = _band(ks, x)
+    shape_k = (k.shape[0], x.shape[0], yq.shape[0])
+
+    def zeros_k():
+        return torch.zeros(shape_k, dtype=cd, device=x.device)
+
+    def zeros_0():
+        return torch.zeros(shape_k[1:], dtype=x.dtype, device=x.device)
+
+    dk, sk, d0 = zeros_k(), zeros_k(), zeros_0()
+    tk, kp, t0 = (zeros_k(), zeros_k(), zeros_0()) if with_bm else (None, None, None)
+    xb, nxb, nyb = x[:, None, :], nx[:, None, :], ny[None, :, :]
+    ik = (1j * k).to(cd)
+    for q in range(yq.shape[1]):
+        yb = yq[None, :, q, :]
+        dg, hyp = _pair_kernels(xb, nxb, yb, nyb, k)
+        dg0, hyp0 = _static_pair_kernels(xb, nxb, yb, nyb)
+        rv, rs, g = _green(xb, yb, k, cd)
+        wq = w[None, :, q]
+        wc = wq.to(cd)
+        dk += dg * wc
+        d0 += dg0 * wq
+        sk += g * wc
+        if with_bm:
+            tk += hyp * wc
+            t0 += hyp0 * wq
+            r_dot_nx = torch.sum(rv * nxb, dim=-1)
+            kp += -(ik - 1.0 / rs) * g * r_dot_nx / rs * wc
+    return dk, d0, sk, tk, t0, kp
+
+
+def pairwise_kh_ref(x, yq, ny, w, ks, want_single: bool = True):
+    """(S_k, D_k), each (F, Ni, Nj) complex, at field points x; S_k is
+    None without ``want_single``."""
+    cd = complex_dtype_for(x.dtype)
+    k = _band(ks, x)
+    shape_k = (k.shape[0], x.shape[0], yq.shape[0])
+    dk = torch.zeros(shape_k, dtype=cd, device=x.device)
+    sk = torch.zeros(shape_k, dtype=cd, device=x.device) if want_single else None
+    ik = (1j * k).to(cd)
+    for q in range(yq.shape[1]):
+        rv, rs, g = _green(x[:, None, :], yq[None, :, q, :], k, cd)
+        r_dot_ny = torch.sum(rv * ny[None, :, :], dim=-1)
+        wc = w[None, :, q].to(cd)
+        dk += (ik - (1.0 / rs).to(cd)) * g * (r_dot_ny / rs).to(cd) * wc
+        if want_single:
+            sk += g * wc
+    return sk, dk
+
+
 # --------------------------------------------------------------------------
 # The Hopper kernel's wrapper.
 # --------------------------------------------------------------------------
 
 _PTR = ctypes.c_void_p
-_ARGTYPES = [ctypes.c_int] * 5 + [_PTR] * 11
+_ARGTYPES = [ctypes.c_int] * 5 + [_PTR] * 13
 
 
 def _library():
@@ -132,18 +212,25 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def bem_pairwise(variant: str, x, nx, yq, ny, w, ks):
-    """Launch the CUDA kernel (kernels/bem_pairwise.cu) for ``variant``
-    "double_layer" -> (D_k, D_0) or "burton_miller" -> (D_k, D_0, T_k,
-    T_0) on the current stream; ``nx`` is None for the double layer.
+    """Launch the CUDA kernel (kernels/bem_pairwise.cu) for ``variant`` on
+    the current stream and return its planes:
 
-    Every tensor must be on one CUDA device, contiguous and of one real
-    dtype, float32 or float64; D_k/T_k come back complex64/complex128.
-    Raises on anything the kernel does not take."""
+    - "double_layer"  -> (D_k, D_0)
+    - "burton_miller" -> (D_k, D_0, T_k, T_0)
+    - "mixed"         -> (D_k, D_0, S_k, None, None, None)
+    - "mixed_bm"      -> (D_k, D_0, S_k, T_k, T_0, K'_k)
+    - "kh"            -> (S_k, D_k)
+    - "kh_double"     -> (None, D_k)
+
+    ``nx`` is read by "burton_miller" and "mixed_bm" only (else it may be
+    None). Every tensor must be on one CUDA device, contiguous and of one
+    real dtype, float32 or float64; the k-dependent planes come back
+    complex64/complex128. Raises on anything the kernel does not take."""
     if variant not in _VARIANTS:
         raise ValueError(f"unknown bem_pairwise variant {variant!r}")
-    bm = variant == "burton_miller"
-    if bm and nx is None:
-        raise ValueError("bem_pairwise burton_miller needs nx")
+    number, takes_nx, has_static, has_single, has_hyper, has_adjoint = _VARIANTS[variant]
+    if takes_nx and nx is None:
+        raise ValueError(f"bem_pairwise {variant} needs nx")
     rdt = x.dtype
     if rdt not in (torch.float32, torch.float64):
         raise TypeError(f"bem_pairwise takes float32/float64, got {rdt}")
@@ -156,7 +243,7 @@ def bem_pairwise(variant: str, x, nx, yq, ny, w, ks):
     if not 1 <= nq <= MAX_QUAD:
         raise ValueError(f"bem_pairwise takes 1..{MAX_QUAD} quadrature points, got {nq}")
     _check("x", x, rdt, (ni, 3), device)
-    if bm:
+    if takes_nx:
         _check("nx", nx, rdt, (ni, 3), device)
     _check("yq", yq, rdt, (nj, nq, 3), device)
     _check("ny", ny, rdt, (nj, 3), device)
@@ -164,10 +251,19 @@ def bem_pairwise(variant: str, x, nx, yq, ny, w, ks):
     _check("ks", ks, rdt, (nf,), device)
 
     cd = complex_dtype_for(rdt)
-    dk = torch.empty((nf, ni, nj), dtype=cd, device=device)
-    d0 = torch.empty((ni, nj), dtype=rdt, device=device)
-    tk = torch.empty_like(dk) if bm else None
-    t0 = torch.empty_like(d0) if bm else None
+
+    def plane_k(wanted):
+        return torch.empty((nf, ni, nj), dtype=cd, device=device) if wanted else None
+
+    def plane_0(wanted):
+        return torch.empty((ni, nj), dtype=rdt, device=device) if wanted else None
+
+    dk = plane_k(True)
+    d0 = plane_0(has_static)
+    sk = plane_k(has_single)
+    tk = plane_k(has_hyper)
+    t0 = plane_0(has_hyper and has_static)
+    kp = plane_k(has_adjoint)
     lib = _library()
     fn = lib.bem_pairwise_f32 if rdt == torch.float32 else lib.bem_pairwise_f64
 
@@ -175,12 +271,18 @@ def bem_pairwise(variant: str, x, nx, yq, ny, w, ks):
         return None if t is None else t.data_ptr()
 
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(int(bm), ni, nj, nq, nf, ptr(x), ptr(nx if bm else None), ptr(yq), ptr(ny),
-             ptr(w), ptr(ks), ptr(dk), ptr(d0), ptr(tk), ptr(t0), stream)
+    err = fn(number, ni, nj, nq, nf, ptr(x), ptr(nx if takes_nx else None), ptr(yq), ptr(ny),
+             ptr(w), ptr(ks), ptr(dk), ptr(d0), ptr(sk), ptr(tk), ptr(t0), ptr(kp), stream)
     if err != 0:
         raise RuntimeError(f"bem_pairwise {variant} launch failed: CUDA error {err}")
     LAUNCHES[variant] += 1
-    return (dk, d0, tk, t0) if bm else (dk, d0)
+    if variant == "double_layer":
+        return dk, d0
+    if variant == "burton_miller":
+        return dk, d0, tk, t0
+    if variant in ("kh", "kh_double"):
+        return sk, dk
+    return dk, d0, sk, tk, t0, kp
 
 
 # --------------------------------------------------------------------------
@@ -208,3 +310,19 @@ def pairwise_bm(x, nx, yq, ny, w, ks):
     if _on_cuda(x):
         return bem_pairwise("burton_miller", x, nx, yq, ny, w, ks)
     return pairwise_bm_ref(x, nx, yq, ny, w, ks)
+
+
+def pairwise_mixed(x, nx, yq, ny, w, ks, with_bm: bool):
+    """(D_k, D_0, S_k, T_k, T_0, K'_k) for wavenumbers ks (F,); the last
+    three are None without ``with_bm``."""
+    if _on_cuda(x):
+        return bem_pairwise("mixed_bm" if with_bm else "mixed", x, nx, yq, ny, w, ks)
+    return pairwise_mixed_ref(x, nx, yq, ny, w, ks, with_bm)
+
+
+def pairwise_kh(x, yq, ny, w, ks, want_single: bool = True):
+    """(S_k, D_k) at field points x for wavenumbers ks (F,); S_k is None
+    without ``want_single`` (rigid surfaces: dp/dn = 0)."""
+    if _on_cuda(x):
+        return bem_pairwise("kh" if want_single else "kh_double", x, None, yq, ny, w, ks)
+    return pairwise_kh_ref(x, yq, ny, w, ks, want_single)

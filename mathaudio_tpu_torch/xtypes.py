@@ -11,6 +11,11 @@ import contextlib
 
 import torch
 
+# Physical constants
+SPEED_OF_SOUND = 343.0  # m/s at 20C
+AIR_DENSITY = 1.204  # kg/m^3 at 20C
+REFERENCE_PRESSURE = 20e-6  # Pa (0 dB SPL)
+
 
 def default_float() -> torch.dtype:
     """float32: the working precision of the device path (the JAX package
@@ -25,6 +30,12 @@ def complex_dtype_for(real_dtype: torch.dtype) -> torch.dtype:
 
 def real_dtype_for(complex_dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if complex_dtype == torch.complex128 else torch.float32
+
+
+def pressure_to_spl(pressure_magnitude, p_ref: float = REFERENCE_PRESSURE):
+    """SPL dB = 20 log10(|p| / p_ref)."""
+    p = torch.clamp_min(torch.as_tensor(pressure_magnitude), 1e-30)
+    return 20.0 * torch.log10(p / p_ref)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -31,6 +31,9 @@ def test_port_files_found():
     assert "mathaudio_tpu_torch/models/room_sweep_nm.py" in names
     assert "mathaudio_tpu_torch/ops/bem_assembly.py" in names
     assert "mathaudio_tpu_torch/bem/sweep.py" in names
+    for module in ("bem/types.py", "bem/solver.py", "bem/postprocess.py", "bem/room_acoustics.py",
+                   "solvers/preconditioners/basic.py", "common/types.py", "common/source.py"):
+        assert f"mathaudio_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -42,7 +45,9 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, mathaudio_tpu_torch, mathaudio_tpu_torch.convert, "
-        "mathaudio_tpu_torch.models.room_sweep_nm, mathaudio_tpu_torch.bem.sweep; "
+        "mathaudio_tpu_torch.models.room_sweep_nm, mathaudio_tpu_torch.bem.sweep, "
+        "mathaudio_tpu_torch.bem, mathaudio_tpu_torch.bem.room_acoustics, "
+        "mathaudio_tpu_torch.solvers.preconditioners.basic, mathaudio_tpu_torch.common.source; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -62,3 +67,22 @@ def test_entry_points_refuse_to_drift_to_cpu():
         RoomSweepModel(meshes[0])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GeometricMultigrid(meshes)
+
+    import numpy as np
+
+    from mathaudio_tpu_torch.bem.postprocess import evaluate_field
+    from mathaudio_tpu_torch.bem.room_acoustics import solve_room_bem
+    from mathaudio_tpu_torch.bem.solver import BemProblem, BemSolver
+    from mathaudio_tpu_torch.common.source import Source
+    from mathaudio_tpu_torch.common.types import Point3D
+
+    rigid = BemProblem.rigid_sphere(1.0, subdivisions=0)
+    n = rigid.mesh.num_elements
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BemSolver().solve(rigid)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BemSolver().solve(BemProblem.radiating_sphere(1.0, subdivisions=0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_room_bem(rigid.mesh, 50.0, [Source.omnidirectional(Point3D(0.0, 0.0, 0.0))])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_field(rigid.mesh, np.ones(n, complex), np.array([[0.0, 0.0, 2.0]]), 1.0)
