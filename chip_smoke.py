@@ -31,12 +31,17 @@ the field at 512 interior points.
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
-2. hold each DIA kernel mode against its plain PyTorch twin on the card at
-   the bench shape (complex64, rel. error <= 1e-5), at an odd lane count,
-   and in complex128 at a small shape (<= 1e-12), and time kernel and twin;
+2. hold each DIA kernel mode (and the x = 0 Jacobi step) against its plain
+   PyTorch twin on the card at every shape the sweep launches (both
+   smoothing levels at 2048 and 32 lanes; complex64, rel. error <= 1e-5),
+   at 1 and 37 lanes, and in complex128 at a small shape (<= 1e-12); time
+   at each launch shape the kernel (launched from Python, and replayed from
+   a CUDA graph: the card's time alone), each tile height, the twin, and
+   the library form torch.sparse.mm of the stacked CSR [K; M; B];
 3. run the FEM sweep with every launch count set to 0 just before and read
-   just after: every DIA kernel must have launched, 4096/4096 lanes must
-   converge; then time repeats;
+   just after: every DIA kernel must have launched, and only at shapes
+   phase 2 timed (counted per shape), 4096/4096 lanes must converge; then
+   time repeats;
 4. check the FEM answers: a 256-lane sub-band with the kernels vs with the
    twins on the card, and a small float64 sweep on the card vs on the CPU;
 5. hold both BEM kernels against their twins off the diagonal (relative
@@ -83,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core rates of the kernel's arithmetic type.
@@ -195,10 +201,63 @@ def time_ms(fn, batches=7, per_batch=10):
     return statistics.median(samples)
 
 
+def sparse_yardstick(dia, offsets, tables):
+    """The library form of the stencil, for timing beside the kernel (the
+    port never calls it): ``torch.sparse.mm`` of the stacked real CSR
+    [K; M; B] (3N x N) by x viewed as real (N x 2F), then the per-lane
+    combine K x - cm M x + cb B x and the mode's epilogue."""
+    import torch
+
+    n = tables.k.shape[1]
+    dev = tables.k.device
+    rows = torch.arange(n, device=dev)
+    idx, vals = [], []
+    for part, tab in enumerate((tables.k, tables.m, tables.b)):
+        for d, off in enumerate(offsets):
+            cols = rows + off
+            keep = (cols >= 0) & (cols < n) & (tab[d] != 0)
+            idx.append(torch.stack([part * n + rows[keep], cols[keep]]))
+            vals.append(tab[d][keep])
+    kmb = torch.sparse_coo_tensor(torch.cat(idx, 1), torch.cat(vals), (3 * n, n),
+                                  check_invariants=True).coalesce()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sparse CSR support is in beta"
+        kmb = kmb.to_sparse_csr()
+
+    def stencil(mode, cm, cb, x, r, omega=1.0):
+        nf = x.shape[1]
+        out = torch.sparse.mm(kmb, torch.view_as_real(x).reshape(n, 2 * nf))
+        ak, am, ab = torch.view_as_complex(out.reshape(3, n, nf, 2)).unbind(0)
+        y = ak - cm * am + cb * ab
+        if mode == "matvec":
+            return y
+        if mode == "residual":
+            return r - y
+        return x + omega * dia._inv_diag(tables, cm, cb) * (r - y)
+
+    return stencil
+
+
+def graph_ms(fn, per_batch=10, batches=7):
+    """The card's time per call of ``fn`` without the host: ``per_batch``
+    calls captured once in a CUDA graph, the graph replayed; median over
+    batches of the mean per call."""
+    import torch
+
+    fn()  # build and configure outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_batch):
+            fn()
+    return time_ms(graph.replay, batches=batches, per_batch=1) / per_batch
+
+
 def kernel_phase(dia, nm, dev, dtype_small_nm, ks_all):
-    """Each mode vs its twin at the bench shapes; returns per-mode records
-    at the fine level (the shape the GMRES operator and level-0 smoother
-    see)."""
+    """Each mode (and the x = 0 Jacobi step) vs its twin, timed, at every
+    shape the sweep launches: both smoothing levels at the chunk's 2048
+    lanes and at its 32 anchor lanes; then ragged lane counts and
+    complex128. Returns {(mode, N, F, x is None): record}."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -234,51 +293,87 @@ def kernel_phase(dia, nm, dev, dtype_small_nm, ks_all):
         return max_abs
 
     params = nm.params()
-    ks = ks_all[:BENCH_CHUNK]
-    records = {}
-    shapes = [("fine", params.offsets[0], params.fine_tables, False),
+    levels = [("fine", params.offsets[0], params.fine_tables, False),
               ("level1", params.offsets[1], params.levels[1].tables, True)]
-    for label, offs, tabs, shifted in shapes:
-        n, nf = tabs.k.shape[1], ks.shape[0]
-        cm, cb = lanes(ks, shifted, torch.complex64)
-        x, r = rand((n, nf), torch.complex64), rand((n, nf), torch.complex64)
-        for mode in MODES:
-            max_abs = check(f"c64 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x,
-                            None if mode == "matvec" else r, 1e-5)
-            ms = time_ms(lambda: run(mode, offs, tabs, cm, cb, x, r, True))
-            plain_ms = time_ms(lambda: run(mode, offs, tabs, cm, cb, x, r, False), batches=3,
-                               per_batch=3)
-            b_ms, b_by = bound(mode, n, nf, offs, torch.complex64)
-            log(f"  {label} {mode}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound")
-            if label == "fine":
-                records[mode] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=b_ms, bound_by=b_by)
-        check(f"c64 {label} N={n} F={nf}", "jacobi", offs, tabs, cm, cb, None, r, 1e-5)
-        ms0 = time_ms(lambda: run("jacobi", offs, tabs, cm, cb, None, r, True))
-        b0, _ = bound("jacobi", n, nf, offs, torch.complex64, from_zero=True)
-        log(f"  {label} jacobi(x=0): kernel {ms0:.4f} ms, bound {b0:.4f} ms (bytes)")
-
-    # odd lane count: partial warps and partial blocks
-    offs, tabs = params.offsets[0], params.fine_tables
-    n = tabs.k.shape[1]
-    cm, cb = lanes(ks[:37], False, torch.complex64)
-    x, r = rand((n, 37), torch.complex64), rand((n, 37), torch.complex64)
-    for mode in MODES:
-        check(f"c64 fine N={n} F=37", mode, offs, tabs, cm, cb, x, r, 1e-5)
+    records = {}
+    for label, offs, tabs, shifted in levels:
+        library = sparse_yardstick(dia, offs, tabs)
+        n = tabs.k.shape[1]
+        for nf in (BENCH_CHUNK, BENCH_CHUNK // SWEEP_KNOBS["warm_stride"]):
+            cm, cb = lanes(ks_all[:nf], shifted, torch.complex64)
+            x, r = rand((n, nf), torch.complex64), rand((n, nf), torch.complex64)
+            for mode, x_in in [(m, x) for m in MODES] + [("jacobi", None)]:
+                r_in = None if mode == "matvec" else r
+                tag = f"{mode}{'(x=0)' if x_in is None else ''}"
+                max_abs = check(f"c64 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x_in, r_in,
+                                1e-5)
+                ms = time_ms(lambda: run(mode, offs, tabs, cm, cb, x_in, r_in, True))
+                plain_ms = time_ms(lambda: run(mode, offs, tabs, cm, cb, x_in, r_in, False),
+                                   batches=3, per_batch=3)
+                sparse_ms = None
+                if x_in is not None:
+                    sparse_ms = time_ms(lambda: library(mode, cm, cb, x_in, r_in), batches=3,
+                                        per_batch=3)
+                b_ms, b_by = bound(mode, n, nf, offs, torch.complex64, from_zero=x_in is None)
+                on_card = graph_ms(lambda: run(mode, offs, tabs, cm, cb, x_in, r_in, True))
+                # every tile height the kernel has, for comparison with the plan's pick
+                by_rows = {p: graph_ms(lambda: dia.dia_stencil(mode, offs, tabs, cm, cb, x_in, r_in,
+                                                               rows_per_thread=p))
+                           for p in dia.ROWS_PER_THREAD}
+                picked = dia.stencil_plan(offs, n, nf, 8, torch.cuda.get_device_properties(
+                    dev).multi_processor_count).rows_per_thread
+                log(f"  {label} N={n} F={nf} {tag}: kernel {ms:.4f} ms, in a graph {on_card:.4f} ms "
+                    f"(rows per thread {picked}), twin {plain_ms:.4f} ms, sparse "
+                    f"{'-' if sparse_ms is None else f'{sparse_ms:.4f}'} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}), {100 * b_ms / on_card:.1f}% of bound; in a graph by rows per "
+                    f"thread {({p: round(t, 4) for p, t in by_rows.items()})}")
+                records[(mode, n, nf, x_in is None)] = dict(
+                    shape=f"{n}x{nf}", x0=x_in is None, max_abs_err=max_abs, ms=ms,
+                    graph_ms=on_card, plain_ms=plain_ms, sparse_ms=sparse_ms, bound_ms=b_ms,
+                    bound_by=b_by, rows_per_thread=picked, graph_ms_by_rows_per_thread=by_rows)
+        # ragged lane counts: one lane, and partial warps and blocks
+        for nf in (1, 37):
+            cm, cb = lanes(ks_all[:nf], shifted, torch.complex64)
+            x, r = rand((n, nf), torch.complex64), rand((n, nf), torch.complex64)
+            for mode, x_in in [(m, x) for m in MODES] + [("jacobi", None)]:
+                check(f"c64 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x_in, r, 1e-5)
 
     # complex128 at a small shape
     p64 = dtype_small_nm.params()
     for label, offs, tabs, shifted in [("fine", p64.offsets[0], p64.fine_tables, False),
                                        ("level1", p64.offsets[1], p64.levels[1].tables, True)]:
         n = tabs.k.shape[1]
-        cm, cb = lanes(torch.linspace(0.55, 2.2, 64, dtype=torch.float64, device=dev),
-                       shifted, torch.complex128)
-        x, r = rand((n, 64), torch.complex128), rand((n, 64), torch.complex128)
-        for mode in MODES:
-            check(f"c128 {label} N={n} F=64", mode, offs, tabs, cm, cb, x, r, 1e-12)
-        check(f"c128 {label} N={n} F=64", "jacobi", offs, tabs, cm, cb, None, r, 1e-12)
+        for nf in (1, 37, 64):
+            cm, cb = lanes(torch.linspace(0.55, 2.2, nf, dtype=torch.float64, device=dev),
+                           shifted, torch.complex128)
+            x, r = rand((n, nf), torch.complex128), rand((n, nf), torch.complex128)
+            for mode in MODES:
+                check(f"c128 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x, r, 1e-12)
+            check(f"c128 {label} N={n} F={nf}", "jacobi", offs, tabs, cm, cb, None, r, 1e-12)
     return records
+
+
+def dia_entries(records, by_shape):
+    """The DIA entries of the kernels line: each mode at the fine level's
+    full chunk, its other launch shapes beside it, each with the launches
+    the counted sweep made at it. Fails if the sweep launched a shape
+    phase 2 did not time."""
+    untimed = sorted(set(by_shape) - set(records))
+    if untimed:
+        raise AssertionError(f"the sweep launched DIA shapes phase 2 did not time: {untimed}")
+    main_n = max(key[1] for key in records)
+    entries = []
+    for mode in MODES:
+        main = (mode, main_n, BENCH_CHUNK, False)
+        others = [dict(records[key], launches=by_shape.get(key, 0))
+                  for key in sorted(records) if key[0] == mode and key != main]
+        rec = {k: v for k, v in records[main].items() if k != "x0"}
+        entries.append(dict(name=f"dia_stencil_{mode}", route="cuda", source=KERNEL_SOURCE,
+                            replaces=TPU_KERNEL,
+                            launches=sum(v for k, v in by_shape.items() if k[0] == mode),
+                            library_ms=None, **rec, other_shapes=others,
+                            launches_at_shape=by_shape.get(main, 0)))
+    return entries
 
 
 def twin_stencil(dia):
@@ -1092,6 +1187,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     launches = dict(dia.LAUNCHES)
+    by_shape = dict(dia.LAUNCHES_BY_SHAPE)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     n_conv = int(conv.sum())
     its_f = its.float()
@@ -1100,6 +1196,9 @@ def main() -> int:
         f"max {int(its.max())}, peak memory {peak_gib:.2f} GiB, launches {launches}")
     if any(launches[m] == 0 for m in MODES):
         raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    for (mode, n, nf, x0), count in sorted(by_shape.items()):
+        log(f"  sweep DIA launches {mode}{'(x=0)' if x0 else ''} at {n} x {nf}: {count}")
+    dia_line = dia_entries(records, by_shape)
     if n_conv != BENCH_FREQS:
         raise AssertionError(f"only {n_conv}/{BENCH_FREQS} frequencies converged")
     if tuple(p.shape) != (BENCH_FREQS, 2) or not bool(torch.isfinite(p).all()):
@@ -1159,11 +1258,7 @@ def main() -> int:
         for label, run in bem_runs.items():
             profile_run(label, run, "bem_pairwise")
 
-    kernels_line = {"kernels": [
-        dict(name=f"dia_stencil_{mode}", route="cuda", source=KERNEL_SOURCE, replaces=TPU_KERNEL,
-             launches=launches[mode], library_ms=None, **records[mode])
-        for mode in MODES
-    ] + [
+    kernels_line = {"kernels": dia_line + [
         dict(name=name, route="cuda", source=BEM_SOURCE, replaces=replaces, library_ms=None,
              **bem_records[variant])
         for variant, (name, replaces) in BEM_KERNELS.items()

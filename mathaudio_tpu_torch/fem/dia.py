@@ -26,6 +26,8 @@ raises; nothing falls back to the twins.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,11 +39,14 @@ _MODES = {"matvec": 0, "residual": 1, "jacobi": 2}
 # Launches of the CUDA kernel per mode since the last reset. A run proves
 # it went through the kernel by reading these; the CPU twins never count.
 LAUNCHES = {mode: 0 for mode in _MODES}
+# The same launches by (mode, N, F, x is None): the shapes a run launched.
+LAUNCHES_BY_SHAPE: dict = {}
 
 
 def reset_launches() -> None:
     for mode in LAUNCHES:
         LAUNCHES[mode] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def dia_pattern(row_of_slot, col_of_slot) -> Tuple[Tuple[int, ...], np.ndarray]:
@@ -158,13 +163,116 @@ def dia_jacobi_ref(offsets: Tuple[int, ...], tables: DiaTables, cm, cb,
 
 
 # --------------------------------------------------------------------------
-# The Hopper kernel's wrapper.
+# The Hopper kernel's launch plan and wrapper.
 # --------------------------------------------------------------------------
 
+ROW_GROUPS = 16  # kernels/dia_stencil.cu kGroups: node groups per block
+LANE_BYTES = 256  # kUnits x 16: the bytes of a row one block covers
+SHARED_LIMIT = 232448  # kSharedLimit: dynamic shared memory per block
+BOX_RUNS = (2, 2, 2, 3, 2, 2, 2)  # the box stencil's runs of consecutive offsets
+BOX_PLANES = (0, 0, 1, 1, 1, 2, 2)  # the window of each run when staged plane by plane
+ROWS_PER_THREAD = (1, 2)  # instantiated tile heights: T = 16 x rows per thread
+
+
+class StencilPlan(NamedTuple):
+    """How kernels/dia_stencil.cu tiles one (offsets, N, F, precision):
+    the node tile's height, and the windows of x it stages."""
+
+    kind: int  # 0 generic, 1 box stencil (15 diagonals in runs BOX_RUNS), 2 box by planes
+    rows_per_thread: int  # P; a block's node tile is T = 16 P nodes
+    windows: Tuple[Tuple[int, int, int], ...]  # (first row rel. to the tile, staged base, rows)
+    base: Tuple[int, ...]  # per diagonal: staged row of the tile's first node
+    self_base: int  # staged row of offset 0, -1 without a main diagonal
+    rows: int  # staged rows in all windows
+    shared_bytes: int  # dynamic shared memory per block
+    blocks: int
+    c_plan: object  # the int array the C entry point takes
+
+    @property
+    def tile(self) -> int:
+        return ROW_GROUPS * self.rows_per_thread
+
+
+def offset_runs(offsets: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Lengths of the runs of consecutive offsets, in diagonal order."""
+    runs = []
+    for i, off in enumerate(offsets):
+        if i and off == offsets[i - 1] + 1:
+            runs[-1] += 1
+        else:
+            runs.append(1)
+    return tuple(runs)
+
+
+def stage_windows(offsets: Tuple[int, ...], tile: int):
+    """Merge the rows a tile of ``tile`` nodes reads, [off, off + tile) per
+    offset, into disjoint windows. Returns (windows, base, rows) as in
+    StencilPlan."""
+    merged = []
+    for lo, hi in sorted({(o, o + tile) for o in offsets}):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    windows, rows = [], 0
+    for lo, hi in merged:
+        windows.append((lo, rows, hi - lo))
+        rows += hi - lo
+    base = tuple(next(b + off - lo for lo, b, length in windows if lo <= off < lo + length)
+                 for off in offsets)
+    return tuple(windows), base, rows
+
+
+def _make_plan(offsets, n, nf, itemsize, rows_per_thread) -> StencilPlan:
+    nd = len(offsets)
+    tile = ROW_GROUPS * rows_per_thread
+    windows, base, rows = stage_windows(offsets, tile)
+    kind = 0
+    if offset_runs(offsets) == BOX_RUNS:
+        kind = 1
+        first_of_run = itertools.accumulate(BOX_RUNS[:-1], initial=0)
+        window_of = [max(w for w, (_, wb, _) in enumerate(windows) if wb <= base[d])
+                     for d in first_of_run]
+        if tuple(window_of) == BOX_PLANES and len(windows) == 3:
+            kind = 2
+    lane_tiles = -(-nf * itemsize // LANE_BYTES)
+    shared = rows * LANE_BYTES + nd * tile * (16 if itemsize == 8 else 32)
+    blocks = -(-n // tile) * lane_tiles
+    self_base = base[offsets.index(0)] if 0 in offsets else -1
+    ints = [kind, rows_per_thread, rows, self_base, min(offsets), max(offsets), len(windows), *base]
+    for field in range(3):
+        ints += [w[field] for w in windows]
+    c_plan = (ctypes.c_int * len(ints))(*ints)
+    return StencilPlan(kind, rows_per_thread, windows, base, self_base, rows, shared, blocks,
+                       c_plan)
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_plan(offsets: Tuple[int, ...], n: int, nf: int, itemsize: int, sm_count: int,
+                 rows_per_thread: Optional[int] = None) -> StencilPlan:
+    """The kernel's tiling for one launch shape (``itemsize`` 8 for
+    complex64, 16 for complex128): two rows per thread (T = 32), or one
+    where that leaves fewer than two blocks per SM or does not fit shared
+    memory. ``rows_per_thread`` forces a height (for measuring the others)."""
+    nd = len(offsets)
+    if not 1 <= nd <= MAX_DIAGONALS:
+        raise ValueError(f"dia_stencil takes 1..{MAX_DIAGONALS} diagonals, got {nd}")
+    if rows_per_thread is not None and rows_per_thread not in ROWS_PER_THREAD:
+        raise ValueError(f"rows_per_thread must be one of {ROWS_PER_THREAD}")
+    heights = (2, 1) if rows_per_thread is None else (rows_per_thread,)
+    fitting = [plan for plan in (_make_plan(offsets, n, nf, itemsize, p) for p in heights)
+               if plan.shared_bytes <= SHARED_LIMIT]
+    if not fitting:
+        raise ValueError(f"dia_stencil: the tile's windows need more than {SHARED_LIMIT} bytes "
+                         f"of shared memory for offsets {offsets}")
+    if fitting[0].blocks < 2 * sm_count and len(fitting) > 1:
+        return fitting[1]
+    return fitting[0]
+
+
 _PTR = ctypes.c_void_p
-_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] + [_PTR] * 11 + [
-    ctypes.c_double, _PTR,
-]
+_ARGTYPES = ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4 + [_PTR] * 11
+             + [ctypes.c_double, _PTR])
 
 
 def _library():
@@ -179,22 +287,33 @@ def _library():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"dia_stencil: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"dia_stencil: {name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"dia_stencil: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(named, dtype, shape, device) -> None:
+    """Raise unless every (name, tensor) is on ``device``, of ``dtype`` and
+    ``shape``, and contiguous. Kept to one pass of cheap tests: it runs on
+    every launch, and the sweep's small launches wait on the host."""
+    for name, t in named:
+        if t.dtype is dtype and t.shape == shape and t.device == device and t.is_contiguous():
+            continue
+        if t.device != device:
+            raise ValueError(f"dia_stencil: {name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"dia_stencil: {name} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"dia_stencil: {name} has shape {tuple(t.shape)}, expected {shape}")
         raise ValueError(f"dia_stencil: {name} must be contiguous")
 
 
 def dia_stencil(mode: str, offsets: Tuple[int, ...], tables: DiaTables, cm, cb,
                 x: Optional[torch.Tensor], r: Optional[torch.Tensor] = None,
-                omega: float = 1.0) -> torch.Tensor:
+                omega: float = 1.0, *, rows_per_thread: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA DIA stencil kernel (kernels/dia_stencil.cu) in
-    ``mode`` "matvec" | "residual" | "jacobi" on the current stream.
+    ``mode`` "matvec" | "residual" | "jacobi" on the current stream, tiled
+    by ``stencil_plan`` (``rows_per_thread`` forces its tile height).
 
     Every tensor must be on one CUDA device, contiguous, of matching
     precision: complex64 vectors with float32 tables, or complex128 with
@@ -219,32 +338,31 @@ def dia_stencil(mode: str, offsets: Tuple[int, ...], tables: DiaTables, cm, cb,
     nd = len(offsets)
     if not 1 <= nd <= MAX_DIAGONALS:
         raise ValueError(f"dia_stencil takes 1..{MAX_DIAGONALS} diagonals, got {nd}")
-    for name, t in (("x", x), ("r", r)):
-        if t is not None:
-            _check(name, t, cdt, (n, nf), device)
-    for name in ("k", "m", "b"):
-        _check(name, getattr(tables, name), rdt, (nd, n), device)
-    for name in ("dk", "dm", "db"):
-        _check(name, getattr(tables, name), rdt, (n,), device)
-    _check("cm", cm, cdt, (nf,), device)
-    _check("cb", cb, cdt, (nf,), device)
+    _check([(name, t) for name, t in (("x", x), ("r", r)) if t is not None], cdt, (n, nf), device)
+    _check((("k", tables.k), ("m", tables.m), ("b", tables.b)), rdt, (nd, n), device)
+    _check((("dk", tables.dk), ("dm", tables.dm), ("db", tables.db)), rdt, (n,), device)
+    _check((("cm", cm), ("cb", cb)), cdt, (nf,), device)
 
+    itemsize = like.element_size()
+    plan = stencil_plan(tuple(offsets), n, nf, itemsize, _sm_count(device.index or 0),
+                        rows_per_thread)
     y = torch.empty((n, nf), dtype=cdt, device=device)
     lib = _library()
     fn = lib.dia_stencil_c64 if cdt == torch.complex64 else lib.dia_stencil_c128
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    offs = (ctypes.c_int * nd)(*offsets)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(_MODES[mode], n, nf, nd, offs,
-             ptr(tables.k), ptr(tables.m), ptr(tables.b),
-             ptr(tables.dk), ptr(tables.dm), ptr(tables.db),
-             ptr(cm), ptr(cb), ptr(x), ptr(r), ptr(y), float(omega), stream)
+    # whole 16-byte units move as one access where every row starts aligned
+    vec16 = int((nf * itemsize) % 16 == 0
+                and all(t.data_ptr() % 16 == 0 for t in (x, r, y) if t is not None))
+    err = fn(_MODES[mode], plan.c_plan, n, nf, nd, vec16,
+             tables.k.data_ptr(), tables.m.data_ptr(), tables.b.data_ptr(),
+             tables.dk.data_ptr(), tables.dm.data_ptr(), tables.db.data_ptr(),
+             cm.data_ptr(), cb.data_ptr(), None if x is None else x.data_ptr(),
+             None if r is None else r.data_ptr(), y.data_ptr(), float(omega),
+             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dia_stencil {mode} launch failed: CUDA error {err}")
     LAUNCHES[mode] += 1
+    key = (mode, n, nf, x is None)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y
 
 
