@@ -44,9 +44,15 @@ Phases, each fatal on failure:
    time repeats;
 4. check the FEM answers: a 256-lane sub-band with the kernels vs with the
    twins on the card, and a small float64 sweep on the card vs on the CPU;
-5. hold both BEM kernels against their twins off the diagonal (relative
-   Frobenius error per plane: float32 <= 1e-5 at the bench shape and at a
-   ragged 300 x 300 shape; float64 <= 1e-12 at N=320), and time them;
+5. hold both BEM sweep kernels against their twins off the diagonal
+   (relative Frobenius error per plane: float32 <= 1e-5 at the bench shape,
+   at a ragged 300 x 300 shape and at large arguments, 9 wavenumbers up to
+   k = 50, k r up to 100 rad; float64 <= 1e-12 at N=320, also up to
+   k = 50; with one quadrature point per element, float32 <= 2e-6 over
+   the entries with k r >= 50, which sees the phase of e^{ikr} there),
+   and time them (from Python, and replayed from a CUDA graph):
+   at the bench shape, and ``burton_miller`` at one wavenumber at path 3
+   (c)'s shape;
 6. run the rigid and the Burton–Miller BEM sweeps, each with the counts set
    to 0 just before and read just after (the path's kernel must have
    launched), all pressures finite, each frequency's residual
@@ -57,12 +63,15 @@ Phases, each fatal on failure:
 8. hold the mixed (off the diagonal) and Kirchhoff-Helmholtz (whole)
    kernel variants against their twins: float32 <= 1e-5 per plane at the
    shapes path 3 launches them at (5120 x 5120; the field of 8192 points
-   as one launch of 8192 x 5120; the cavity's 512 x 5120; one wavenumber)
-   and at a ragged 300 x 333 shape with 3 wavenumbers, float64 <= 1e-12 at
-   N=320; time them at each of the path's shapes;
+   as one launch of 8192 x 5120; the cavity's 512 x 5120; one wavenumber),
+   at a ragged 300 x 333 shape with 3 wavenumbers and with 3 up to k = 50,
+   float64 <= 1e-12 at N=320 (also up to k = 50), the far-field check of
+   phase 5 (k r >= 50, <= 2e-6); time them at each of the
+   path's shapes, from Python and replayed from a CUDA graph;
 9. run path 3 (a)-(d), each with the counts set to 0 just before and read
-   just after (its kernels must have launched, each field evaluation as
-   the one launch phase 8 held), gated against the closed
+   just after (its kernels must have launched, each field evaluation and
+   (c)'s Burton–Miller assembly as the one launch phases 8 and 5 held),
+   gated against the closed
    forms written out below (relative L2: (a) surface pressure, dp/dn and
    field <= 2e-2; (b) surface pressure <= 5e-2; (c) finite, residual
    ||A p - b||/||b|| <= 1e-4; (d) wall pressure and interior field <= 2e-2),
@@ -122,12 +131,12 @@ BEM_KERNELS = {  # variant: (name in the kernels line, TPU kernel replaced)
 SWEEP_VARIANTS = ("double_layer", "burton_miller")
 MIXED_VARIANTS = ("mixed", "mixed_bm")
 FIELD_VARIANTS = ("kh", "kh_double")
-# Operations kernels/bem_pairwise.cu does (each add, multiply, compare,
-# sin, cos and rsqrt counted as one): per (i, j) pair, per (i, j, q) and
-# per (i, j, q, k); the hypersingular variants also form k^2 once per
-# (i, j, k).
-BEM_OPS = {"double_layer": (0, 22, 13), "burton_miller": (5, 39, 26), "mixed": (0, 23, 17),
-           "mixed_bm": (5, 41, 40), "kh": (0, 21, 17), "kh_double": (0, 20, 13)}
+# Operations the quadrature needs (each add, multiply, compare, sin, cos,
+# sqrt and rsqrt counted as one, an FMA as two): per (i, j) pair, per
+# (i, j, q) and per (i, j, q, k). The float kernel's reduction of k r to
+# [-pi, pi] before the SFU is its own cost, not counted.
+BEM_OPS = {"double_layer": (0, 22, 12), "burton_miller": (5, 41, 24), "mixed": (0, 23, 16),
+           "mixed_bm": (5, 44, 37), "kh": (0, 22, 16), "kh_double": (0, 21, 12)}
 # What a variant reads and writes: (reads nx, complex (F, Ni, Nj) planes,
 # real (Ni, Nj) planes), and the names of the planes its wrapper returns.
 BEM_IO = {"double_layer": (False, 1, 1), "burton_miller": (True, 2, 2), "mixed": (False, 2, 1),
@@ -138,6 +147,11 @@ BEM_PLANES = {"double_layer": ("D_k", "D_0"), "burton_miller": ("D_k", "D_0", "T
               "kh": ("S_k", "D_k"), "kh_double": (None, "D_k")}
 
 PATH3_KA = 1.0
+PATH3_RIGID_KA = 2.0  # (c), the rigid sphere under a plane wave
+LARGE_K = 50.0  # k r up to 100 rad on the unit sphere, 150 from the field points
+# The far-field check (phases 5 and 8): entries with k r >= FAR_KR, float32,
+# one quadrature point per element, relative error per plane <= FAR_TOL.
+FAR_KR, FAR_TOL = 50.0, 2e-6
 PATH3_GMRES_TOL = 1e-5
 FIELD_SHAPE = (64, 128)  # 8192 points on r = 2
 CAVITY_SHAPE = (16, 32)  # 512 points on r = 0.5, inside the cavity
@@ -469,7 +483,7 @@ def bem_bound(variant, ni, nj, nq, nf, rdtype):
     inputs = (3 * ni * (2 if reads_nx else 1) + nj * (3 * nq + 3 + nq) + nf) * rb
     outputs = (2 * nf * complex_planes + real_planes) * ni * nj * rb
     per_pair, per_point, per_point_k = BEM_OPS[variant]
-    ops = ni * nj * (per_pair + (nf if reads_nx else 0) + nq * (per_point + per_point_k * nf))
+    ops = ni * nj * (per_pair + nq * (per_point + per_point_k * nf))
     t_bytes = (inputs + outputs) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[str(rdtype).replace("torch.", "")] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -528,16 +542,98 @@ def _zero_diagonal(t):
     return t
 
 
+def far_field_errors(variant, got, ref, x, yq, ks):
+    """Relative Frobenius error of each complex plane of ``variant`` over
+    the entries with k r >= FAR_KR: ``got`` from the kernel and ``ref`` from
+    its twin, float32, at the points ``x`` against elements of one
+    quadrature point each (``yq`` (Nj, 1, 3)). Each entry is then one term
+    of the sum, and its error that of e^{ikr} there, beside the amplitude's
+    rounding. SFU sin and cos of an unreduced k r are off by ~1e-5 rad at
+    k r = 100; the error over whole planes barely sees that, as the near
+    pairs, where k r is small, carry most of each plane's norm. The twin
+    sums r^2 in torch's reduction order, the kernel as (dx^2 + dy^2) + dz^2,
+    and where the two float32 products k r differ (one ulp is 7.6e-6 rad at
+    k r ~ 100) the twin's entry is first turned by e^{i(k r_kernel - k r_twin)},
+    so that only the kernel's e^{ikr} is measured. Returns ({plane: error},
+    the number of far entries, the share of them whose k r differs)."""
+    import torch
+
+    rv = yq[None, :, 0, :] - x[:, None, :]
+    sq = rv * rv
+    r_twin = torch.sqrt(torch.sum(sq, dim=-1))
+    r_kernel = torch.sqrt((sq[..., 0] + sq[..., 1]) + sq[..., 2])
+    k = ks[:, None, None]
+    kr_twin, kr_kernel = (k * r_twin).double(), (k * r_kernel).double()
+    far = kr_twin >= FAR_KR
+    turn = torch.polar(torch.ones_like(kr_twin), kr_kernel - kr_twin)[far]
+    moved = float((kr_kernel != kr_twin)[far].double().mean())
+    errors = {}
+    for plane, g, r in zip(BEM_PLANES[variant], got, ref):
+        if g is None or not g.is_complex():
+            continue
+        want = r[far].to(torch.complex128) * turn
+        diff = g[far].to(torch.complex128) - want
+        errors[plane] = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want))
+    return errors, int(far.sum()), moved
+
+
+def far_field_check(label, ops, twin, variant, x, nx, st, ks):
+    """``variant`` (float32) at the points ``x`` against the elements of
+    ``st`` with one quadrature point each, held against its twin over the
+    entries with k r >= FAR_KR (``far_field_errors``) to FAR_TOL."""
+    import torch
+
+    yq, w = st.qp[:, :1].contiguous(), st.qw[:, :1].contiguous()
+    a = (x, nx, yq, st.normals, w, ks)
+    got, ref = ops.bem_pairwise(variant, *a), twin(variant, *a)
+    errors, n_far, moved = far_field_errors(variant, got, ref, x, yq, ks)
+    if n_far == 0:
+        raise AssertionError(f"{label} {variant}: no entry with k r >= {FAR_KR:g}")
+    for plane, rel in errors.items():
+        log(f"kernel {label} {variant} {plane}: far-field (k r >= {FAR_KR:g}, {n_far} entries, "
+            f"{100 * moved:.1f}% with the twin's k r an ulp off) rel err {rel:.3e} (tol {FAR_TOL:g})")
+        if rel > FAR_TOL:
+            raise AssertionError(f"{label} {variant} {plane}: far-field phase off ({rel:.3e})")
+    del got, ref
+    torch.cuda.empty_cache()
+
+
+def bem_kernel_record(label, ops, twin, variant, a, off_diagonal):
+    """``variant`` on inputs ``a`` (float32) held against its twin, timed
+    from Python and replayed from a CUDA graph, the twin timed, and the
+    bound: one record of the kernels line."""
+    import torch
+
+    x, _, yq, _, _, ks = a
+    got = ops.bem_pairwise(variant, *a)
+    ref = twin(variant, *a)
+    torch.cuda.synchronize()
+    max_abs = compare_planes(label, variant, got, ref, 1e-5, off_diagonal)
+    del got, ref
+    ms = time_ms(lambda: ops.bem_pairwise(variant, *a))
+    on_card = graph_ms(lambda: ops.bem_pairwise(variant, *a))
+    plain_ms = time_ms(lambda: twin(variant, *a), batches=3, per_batch=1)
+    ni, (nj, nq, _), nf = x.shape[0], yq.shape, ks.shape[0]
+    b_ms, b_by = bem_bound(variant, ni, nj, nq, nf, torch.float32)
+    log(f"  {variant} {ni} x {nj} F={nf}: kernel {ms:.4f} ms, in a graph {on_card:.4f} ms, twin "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / on_card:.1f}% of bound")
+    torch.cuda.empty_cache()
+    return dict(shape=f"{ni}x{nj}", nf=nf, max_abs_err=max_abs, ms=ms, graph_ms=on_card,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, launches=0)
+
+
 def bem_kernel_phase(ops, statics, statics64, dev):
-    """Both BEM kernels vs their twins off the diagonal: at the bench
-    shape (float32, timed, with bounds), at ragged shapes and in float64.
-    Returns per-variant records at the bench shape."""
+    """Both BEM sweep kernels vs their twins off the diagonal: at the bench
+    shape (float32, timed, with bounds), at ragged shapes, at large
+    arguments and in float64; ``burton_miller`` also at path 3 (c)'s one
+    wavenumber. Returns per-variant records at the bench shape, with the
+    F = 1 record of ``burton_miller`` under ``other_shapes``."""
     import torch
 
     twin = twin_pairwise(ops)
 
-    def args(variant, st, n, nf, dtype):
-        ks = torch.linspace(*BEM_BAND, nf, dtype=dtype, device=dev)
+    def args(variant, st, n, ks):
+        ks = torch.as_tensor(ks, dtype=st.centers.dtype).to(dev)
         nx = st.normals[:n] if variant == "burton_miller" else None
         return st.centers[:n], nx, st.qp[:n], st.normals[:n], st.qw[:n], ks
 
@@ -548,22 +644,28 @@ def bem_kernel_phase(ops, statics, statics64, dev):
         return compare_planes(label, variant, got, ref, tol, off_diagonal=True)
 
     records = {}
-    n, nq = statics.centers.shape[0], statics.qp.shape[1]
+    n = statics.centers.shape[0]
+    n64 = statics64.centers.shape[0]
+    large = torch.linspace(LARGE_K / 9, LARGE_K, 9, dtype=torch.float64)
     for variant in SWEEP_VARIANTS:
-        a = args(variant, statics, n, BEM_FREQS, torch.float32)
-        max_abs = check(f"f32 N={n} F={BEM_FREQS}", variant, a, 1e-5)
-        ms = time_ms(lambda: ops.bem_pairwise(variant, *a))
-        plain_ms = time_ms(lambda: twin(variant, *a), batches=3, per_batch=1)
-        b_ms, b_by = bem_bound(variant, n, n, nq, BEM_FREQS, torch.float32)
-        log(f"  {variant}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / ms:.1f}% of bound")
-        records[variant] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by)
-        torch.cuda.empty_cache()
+        band = torch.linspace(*BEM_BAND, BEM_FREQS, dtype=torch.float64)
+        records[variant] = bem_kernel_record(f"f32 N={n} F={BEM_FREQS}", ops, twin, variant,
+                                             args(variant, statics, n, band), off_diagonal=True)
         for nf in (3, 11):  # ragged rows, columns and frequency groups
-            check(f"f32 N=300 F={nf}", variant, args(variant, statics, 300, nf, torch.float32), 1e-5)
-        n64 = statics64.centers.shape[0]
-        check(f"f64 N={n64} F=4", variant, args(variant, statics64, n64, 4, torch.float64), 1e-12)
+            check(f"f32 N=300 F={nf}", variant,
+                  args(variant, statics, 300, torch.linspace(*BEM_BAND, nf)), 1e-5)
+        check(f"f32 N=300 F=9 k<={LARGE_K:g}", variant, args(variant, statics, 300, large), 1e-5)
+        x, nx, *_, ks = args(variant, statics, 1280, large)
+        far_field_check(f"f32 1280 x {n} nq=1 F=9 k<={LARGE_K:g}", ops, twin, variant, x, nx,
+                        statics, ks)
+        check(f"f64 N={n64} F=4", variant,
+              args(variant, statics64, n64, torch.linspace(*BEM_BAND, 4)), 1e-12)
+        check(f"f64 N={n64} F=9 k<={LARGE_K:g}", variant, args(variant, statics64, n64, large),
+              1e-12)
+    # path 3 (c): the rigid sphere's Burton-Miller assembly, one wavenumber
+    records["burton_miller"]["other_shapes"] = [bem_kernel_record(
+        f"f32 N={n} F=1", ops, twin, "burton_miller",
+        args("burton_miller", statics, n, [PATH3_RIGID_KA]), off_diagonal=True)]
     return records
 
 
@@ -710,7 +812,7 @@ def bem_path(dev, counters):
     if bm["burton_miller"] == 0:
         raise AssertionError(f"the Burton-Miller sweep did not launch its kernel: {bm}")
     records["double_layer"]["launches"] = rigid["double_layer"]
-    records["burton_miller"]["launches"] = bm["burton_miller"]
+    records["burton_miller"]["launches_at_shape"] = bm["burton_miller"]
 
     bem_answers_phase(ops, dev)
     runs = {"bem_rigid": run_rigid, "bem_burton_miller": run_bm}
@@ -722,13 +824,16 @@ def bem_path(dev, counters):
     launches, by_case, runs3 = path3(dev, counters)
     for variant in MIXED_VARIANTS + FIELD_VARIANTS:
         records[variant]["launches"] = launches.get(variant, 0)
+    # path 3 (c) launches ``burton_miller`` at one wavenumber, phase 5's F = 1 record
+    records["burton_miller"]["other_shapes"][0]["launches"] = by_case["c"]["burton_miller"]
+    records["burton_miller"]["launches"] = bm["burton_miller"] + launches.get("burton_miller", 0)
     # of the launches of ``kh``, the cavity's are at its own shape
     records["kh"]["other_shapes"][0]["launches"] = by_case["d"]["kh"]
     records["kh"]["launches_at_shape"] = records["kh"]["launches"] - by_case["d"]["kh"]
-    for case, variant in (("a", "kh"), ("c", "kh_double"), ("d", "kh")):
+    for case, variant in (("a", "kh"), ("c", "kh_double"), ("c", "burton_miller"), ("d", "kh")):
         if by_case[case][variant] != 1:
-            raise AssertionError(f"path 3 ({case}): the field was not one launch of {variant} at the "
-                                 f"shape phase 8 held it at: {by_case[case]}")
+            raise AssertionError(f"path 3 ({case}): {variant} was not one launch at the shape "
+                                 f"phases 5 and 8 held it at: {by_case[case]}")
     path3_answers(ops, dev)
     runs.update(runs3)
     return records, runs
@@ -743,8 +848,8 @@ def field_points():
 def single_k_kernel_phase(ops, statics, statics64, dev):
     """Phase 8: the mixed and Kirchhoff-Helmholtz variants vs their twins
     at path 3's shapes (float32, one wavenumber, timed, with bounds), at a
-    ragged shape with three wavenumbers, and in float64. Returns
-    per-variant records at the path's shapes."""
+    ragged shape with three wavenumbers, at large arguments, and in
+    float64. Returns per-variant records at the path's shapes."""
     import torch
 
     twin = twin_pairwise(ops)
@@ -773,20 +878,14 @@ def single_k_kernel_phase(ops, statics, statics64, dev):
         points, or the field points ``pts``, against its N elements), one
         wavenumber, float32, held against its twin, timed and bounded."""
         ni = pts.shape[0] if variant in FIELD_VARIANTS else n
-        a = args(variant, statics, pts, ni, n, [PATH3_KA])
-        max_abs = check(f"f32 {ni} x {n} F=1", variant, a, 1e-5)
-        ms = time_ms(lambda: ops.bem_pairwise(variant, *a))
-        plain_ms = time_ms(lambda: twin(variant, *a), batches=3, per_batch=1)
-        b_ms, b_by = bem_bound(variant, ni, n, nq, 1, torch.float32)
-        log(f"  {variant} {ni} x {n}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound")
-        torch.cuda.empty_cache()
-        return dict(shape=f"{ni}x{n}", max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, launches=0)
+        return bem_kernel_record(f"f32 {ni} x {n} F=1", ops, twin, variant,
+                                 args(variant, statics, pts, ni, n, [PATH3_KA]),
+                                 off_diagonal=variant in MIXED_VARIANTS)
 
     records = {}
-    n, nq = statics.centers.shape[0], statics.qp.shape[1]
+    n = statics.centers.shape[0]
     n64 = statics64.centers.shape[0]
+    large = [LARGE_K / 3, 2 * LARGE_K / 3, LARGE_K]
     for variant in MIXED_VARIANTS + FIELD_VARIANTS:
         # the field of (a) and (c) is one launch at every point; (d) gives
         # ``kh`` its interior points
@@ -796,8 +895,15 @@ def single_k_kernel_phase(ops, statics, statics64, dev):
         # ragged rows, columns and frequency groups
         check("f32 300 x 333 F=3", variant,
               args(variant, statics, points, 300, 333, [0.5, 1.75, 3.0]), 1e-5)
+        check(f"f32 300 x 333 F=3 k<={LARGE_K:g}", variant,
+              args(variant, statics, points, 300, 333, large), 1e-5)
+        x, nx, *_, ks = args(variant, statics, points, 1280, n, large)
+        far_field_check(f"f32 1280 x {n} nq=1 F=3 k<={LARGE_K:g}", ops, twin, variant, x, nx,
+                        statics, ks)
         check(f"f64 {n64} x {n64} F=3", variant,
               args(variant, statics64, points, n64, n64, [0.5, 1.75, 3.0]), 1e-12)
+        check(f"f64 {n64} x {n64} F=3 k<={LARGE_K:g}", variant,
+              args(variant, statics64, points, n64, n64, large), 1e-12)
     return records
 
 
@@ -1008,7 +1114,7 @@ def path3(dev, counters, subdiv=BEM_SUBDIV, dtype=None):
            krylov, None, sol_b.info)
 
     # (c) rigid sphere, Burton-Miller -> burton_miller, then the field -> kh_double
-    prob_c = BemProblem.rigid_sphere(2.0, subdivisions=subdiv)
+    prob_c = BemProblem.rigid_sphere(PATH3_RIGID_KA, subdivisions=subdiv)
     solver_c = BemSolver(gmres_config(True), **where)
 
     def run_c():

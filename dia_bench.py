@@ -11,7 +11,8 @@ the chunk's 2048 lanes and its 32 anchor lanes, complex64, each mode
 Python (what the sweep sees: where the host issues slower than the card
 runs, this is the host's time per launch); and ``graph_ms``, the same 10
 launches captured once in a CUDA graph and replayed (the card's time per
-launch, without the host). Each is the median of 7 batches after a warm-up.
+launch, without the host). Each is the median of 7 batches after a warm-up
+(chip_smoke.py's ``time_ms`` and ``graph_ms``).
 
 To compare two versions, run them in turns in one session on one card
 (parent, change, change, parent): ``--repo`` imports the package from DIR,
@@ -24,35 +25,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
+
+# the timers of this checkout, imported before --repo goes on the path
+from chip_smoke import gpu_line, graph_ms, time_ms
 
 LEVELS = (20, 3)  # box mesh n and levels of the bench hierarchy
 WALLS = (1, 2, 3, 4, 5, 6)
 ROOM = dict(wall_tags=WALLS, absorption=0.15,
             listening_positions=((0.25, 0.25, 0.25), (0.7, 0.6, 0.4)))
 LANES = (2048, 32)  # a chunk, and its anchors at warm stride 64
-CALLS, BATCHES = 10, 7
-
-
-def median_ms(run_batch):
-    import torch
-
-    for _ in range(2):
-        run_batch()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(BATCHES):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run_batch()
-        stop.record()
-        stop.synchronize()
-        samples.append(start.elapsed_time(stop) / CALLS)
-    return statistics.median(samples)
 
 
 def main() -> int:
@@ -97,23 +80,16 @@ def main() -> int:
             for mode, x_in in (("matvec", x), ("residual", x), ("jacobi", x), ("jacobi", None)):
                 r_in = None if mode == "matvec" else r
 
-                def batch():
-                    for _ in range(CALLS):
-                        dia.dia_stencil(mode, offs, tabs, cm, cb, x_in, r_in, 1.0)
+                def call():
+                    dia.dia_stencil(mode, offs, tabs, cm, cb, x_in, r_in, 1.0)
 
-                stream_ms = median_ms(batch)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    batch()
-                graph_ms = median_ms(graph.replay)
+                stream_ms = time_ms(call)
+                on_card = graph_ms(call)
                 shapes.append(dict(mode=mode + ("(x=0)" if x_in is None else ""),
-                                   shape=f"{n}x{nf}", stream_ms=stream_ms, graph_ms=graph_ms))
+                                   shape=f"{n}x{nf}", stream_ms=stream_ms, graph_ms=on_card))
                 print(f"{n} x {nf} {shapes[-1]['mode']}: stream {stream_ms:.4f} ms, graph "
-                      f"{graph_ms:.4f} ms", flush=True)
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-                          "--id=0"], capture_output=True, text=True, check=True,
-                         timeout=60).stdout.strip()
-    print(json.dumps({"repo": repo, "gpu": gpu, "shapes": shapes}), flush=True)
+                      f"{on_card:.4f} ms", flush=True)
+    print(json.dumps({"repo": repo, "gpu": gpu_line(), "shapes": shapes}), flush=True)
     return 0
 
 

@@ -16,6 +16,7 @@ against the twins by the tests marked ``cuda`` (they skip without a card)
 and by chip_smoke.py.
 """
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -223,3 +224,72 @@ def test_kernel_matches_twin_on_card(geometry, cuda_device, variant, dtype, tol,
         if g is not None:
             assert g.dtype == r.dtype and g.shape == r.shape
             assert _rel(g, r, off_diagonal=variant.startswith("mixed")) < tol
+
+
+# The kernel on the card: several wavenumbers (these variants run one per
+# thread, so F wavenumbers are F groups), ragged Ni != Nj, large arguments
+# (k up to 50: k r up to 100 rad on the surface, 200 from the field points,
+# reduced to [-pi, pi] by the float kernel before the SFU).
+
+SINGLE_K_VARIANTS = ["mixed", "mixed_bm", "kh", "kh_double"]
+DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
+
+
+def _held_on_card(geometry, device, variant, dtype, tol, ks):
+    before = ops.LAUNCHES[variant]
+    if variant.startswith("mixed"):
+        x, nx, yq, ny, w = (torch.tensor(a, dtype=dtype, device=device).contiguous()
+                            for a in _mixed_inputs(geometry, "ragged"))
+        got = ops.bem_pairwise(variant, x, nx, yq, ny, w, ks)
+        ref = ops.pairwise_mixed_ref(x, nx, yq, ny, w, ks, variant == "mixed_bm")
+    else:
+        x, yq, ny, w = (torch.tensor(a, dtype=dtype, device=device).contiguous()
+                        for a in _kh_inputs(geometry, "ragged"))
+        got = ops.bem_pairwise(variant, x, None, yq, ny, w, ks)
+        ref = ops.pairwise_kh_ref(x, yq, ny, w, ks, variant == "kh")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[variant] == before + 1
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert _rel(g, r, off_diagonal=variant.startswith("mixed")) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SINGLE_K_VARIANTS)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("nf", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("k_max", [3.0, 50.0], ids=["band", "large_kr"])
+def test_kernel_matches_twin_on_card_in_ragged_groups(geometry, cuda_device, variant, dtype, tol,
+                                                      nf, k_max):
+    ks = k_max * torch.arange(1, nf + 1, dtype=dtype, device=cuda_device) / nf
+    _held_on_card(geometry, cuda_device, variant, dtype, tol, ks)
+
+
+# Far-field phase, as in tests/test_torch_bem_ops.py (chip_smoke.py
+# ``far_field_errors``): one quadrature point per element, the error of
+# e^{ikr} where k r >= 50.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SINGLE_K_VARIANTS)
+def test_far_field_phase_on_card(geometry, cuda_device, variant):
+    ks = torch.tensor([50.0 / 3, 100.0 / 3, 50.0], device=cuda_device)
+    mixed = variant.startswith("mixed")
+    if mixed:
+        x, nx, yq, ny, w = (torch.tensor(a, dtype=torch.float32, device=cuda_device).contiguous()
+                            for a in _mixed_inputs(geometry, "full"))
+    else:
+        nx = None
+        x, yq, ny, w = (torch.tensor(a, dtype=torch.float32, device=cuda_device).contiguous()
+                        for a in _kh_inputs(geometry, "full"))
+    yq, w = yq[:, :1].contiguous(), w[:, :1].contiguous()
+    got = ops.bem_pairwise(variant, x, nx, yq, ny, w, ks)
+    ref = (ops.pairwise_mixed_ref(x, nx, yq, ny, w, ks, variant == "mixed_bm") if mixed
+           else ops.pairwise_kh_ref(x, yq, ny, w, ks, variant == "kh"))
+    errors, n_far, _ = chip_smoke.far_field_errors(variant, got, ref, x, yq, ks)
+    assert n_far > 1000 and errors
+    for plane, err in errors.items():
+        print(f"{variant} {plane}: far-field rel err {err:.3e}")
+        assert err < chip_smoke.FAR_TOL, (plane, err)

@@ -11,6 +11,10 @@ kernel itself is held against the twins by the tests marked ``cuda``
 (they skip without a card) and by chip_smoke.py.
 """
 
+import re
+from pathlib import Path
+
+import chip_smoke
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ from mathaudio_tpu_torch.ops import bem_assembly as ops
 
 KS = np.array([1.5, 2.75])
 SUBSETS = {"full": slice(None), "ragged300": slice(0, 300)}
+KERNEL_SOURCE = Path(ops.__file__).resolve().parents[1] / "kernels" / "bem_pairwise.cu"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -183,3 +188,117 @@ def test_kernel_matches_twin_on_card(geometry, cuda_device, variant, dtype, tol,
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         assert _rel_off_diagonal(g, r) < tol
+
+
+# --------------------------------------------------------------------------
+# The float kernel's range reduction, emulated on the CPU.
+# --------------------------------------------------------------------------
+
+
+def _fma32(a, b, c):
+    """float32 a * b + c rounded once (the product of two float32 values is
+    exact in float64)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def test_float_range_reduction_lands_in_one_period():
+    """A numpy emulation of the float kernel's reduction of k r to
+    [-pi, pi] (kernels/bem_pairwise.cu ``sin_cos``, its constants read from
+    the source): the reduced argument has the sine and cosine of k r to
+    float32 rounding of the result, up to k r = 160 rad, where the SFU then
+    adds its ~2^-21 on [-pi, pi]."""
+    src = KERNEL_SOURCE.read_text()
+
+    def const(name):
+        return np.float32(float(re.search(rf"{name} = ([-0-9.e]+)f;", src).group(1)))
+
+    inv2pi, hi, lo, rnd = (const(n) for n in ("kInv2Pi", "kTwoPiHi", "kTwoPiLo", "kRound"))
+    rng = np.random.default_rng(3)
+    v = np.concatenate([np.linspace(0, 160, 400001), rng.uniform(0, 160, 100000),
+                        np.pi * np.arange(0, 51)]).astype(np.float32)
+    n = (_fma32(v, inv2pi, rnd) - rnd).astype(np.float32)
+    t = _fma32(-n, lo, _fma32(-n, hi, v))
+    assert np.array_equal(n, np.round(n)) and n.max() == np.round(160 / (2 * np.pi))
+    # n = rint of a rounded product: by half-integers t may pass pi by ulps
+    assert np.abs(t).max() <= np.pi + 1e-5
+    exact = v.astype(np.float64)
+    t = t.astype(np.float64)
+    assert np.abs(np.sin(t) - np.sin(exact)).max() < 3e-7
+    assert np.abs(np.cos(t) - np.cos(exact)).max() < 3e-7
+
+
+# --------------------------------------------------------------------------
+# The kernel on the card: ragged wavenumber groups (F = 1 runs one
+# wavenumber per thread, F > 1 groups of 8: F = 3, 9, 17 leave lanes idle),
+# ragged Ni != Nj, large arguments (k up to 50 on the unit sphere: k r up to
+# 100 rad, which the float kernel reduces to [-pi, pi] before the SFU).
+# --------------------------------------------------------------------------
+
+SWEEP_VARIANTS = ["double_layer", "burton_miller"]
+DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
+
+
+def _ragged_on_card(geometry, dtype, device, rows=257, cols=300):
+    """The first ``rows`` collocation points against the first ``cols``
+    elements: partial tiles in i and j, off-diagonal entries (i, i) for
+    i < rows."""
+    c, n, qp, qw = geometry
+    return tuple(torch.tensor(a, dtype=dtype, device=device).contiguous()
+                 for a in (c[:rows], n[:rows], qp[:cols], n[:cols], qw[:cols]))
+
+
+def _held_on_card(variant, x, nx, yq, ny, w, ks, tol):
+    bm = variant == "burton_miller"
+    before = ops.LAUNCHES[variant]
+    got = ops.bem_pairwise(variant, x, nx if bm else None, yq, ny, w, ks)
+    ref = (ops.pairwise_bm_ref(x, nx, yq, ny, w, ks) if bm
+           else ops.pairwise_double_layer_ref(x, yq, ny, w, ks))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[variant] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert bool(torch.isfinite(_off_diagonal_t(g)).all())
+        assert _rel_off_diagonal(g, r) < tol
+
+
+def _off_diagonal_t(t):
+    t = t.clone()
+    torch.diagonal(t, dim1=-2, dim2=-1).zero_()
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SWEEP_VARIANTS)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("nf", [1, 3, 8, 9, 17])
+@pytest.mark.parametrize("k_max", [3.0, 50.0], ids=["band", "large_kr"])
+def test_kernel_matches_twin_on_card_in_ragged_groups(geometry, cuda_device, variant, dtype, tol,
+                                                      nf, k_max):
+    x, nx, yq, ny, w = _ragged_on_card(geometry, dtype, cuda_device)
+    ks = k_max * torch.arange(1, nf + 1, dtype=dtype, device=cuda_device) / nf
+    _held_on_card(variant, x, nx, yq, ny, w, ks, tol)
+
+
+# Far-field phase (chip_smoke.py ``far_field_errors``): with one quadrature
+# point per element each entry is one term of the sum, so where k r >= 50
+# its error against the twin is that of e^{ikr} there; SFU sin and cos of an
+# unreduced k r are off by ~1e-5 rad at k r = 100, which the whole-plane
+# error above barely sees.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SWEEP_VARIANTS)
+@pytest.mark.parametrize("nf", [1, 9])
+def test_far_field_phase_on_card(geometry, cuda_device, variant, nf):
+    x, nx, yq, ny, w = _ragged_on_card(geometry, torch.float32, cuda_device)
+    yq, w = yq[:, :1].contiguous(), w[:, :1].contiguous()
+    ks = 50.0 * torch.arange(1, nf + 1, dtype=torch.float32, device=cuda_device) / nf
+    bm = variant == "burton_miller"
+    got = ops.bem_pairwise(variant, x, nx if bm else None, yq, ny, w, ks)
+    ref = (ops.pairwise_bm_ref(x, nx, yq, ny, w, ks) if bm
+           else ops.pairwise_double_layer_ref(x, yq, ny, w, ks))
+    errors, n_far, _ = chip_smoke.far_field_errors(variant, got, ref, x, yq, ks)
+    assert n_far > 1000 and len(errors) == (2 if bm else 1)
+    for plane, err in errors.items():
+        print(f"{variant} F={nf} {plane}: far-field rel err {err:.3e}")
+        assert err < chip_smoke.FAR_TOL, (plane, err)

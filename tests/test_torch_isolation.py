@@ -1,5 +1,6 @@
-"""The port stands alone: mathaudio_tpu_torch, chip_smoke.py and dia_bench.py import
-neither JAX nor the JAX package, and entry points never drift to the CPU."""
+"""The port stands alone: mathaudio_tpu_torch, chip_smoke.py, dia_bench.py and
+bem_bench.py import neither JAX nor the JAX package, and entry points never
+drift to the CPU."""
 
 import ast
 import subprocess
@@ -10,8 +11,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "mathaudio_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                     ROOT / "dia_bench.py"]
+PORT_FILES = sorted((ROOT / "mathaudio_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "dia_bench.py", ROOT / "bem_bench.py"]
 FORBIDDEN = ("jax", "jaxlib", "mathaudio_tpu")
 
 
@@ -27,7 +28,7 @@ def _imported_roots(path: Path):
 
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert "chip_smoke.py" in names and "dia_bench.py" in names
+    assert "chip_smoke.py" in names and "dia_bench.py" in names and "bem_bench.py" in names
     assert "mathaudio_tpu_torch/fem/dia.py" in names
     assert "mathaudio_tpu_torch/models/room_sweep_nm.py" in names
     assert "mathaudio_tpu_torch/ops/bem_assembly.py" in names
