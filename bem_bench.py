@@ -23,13 +23,27 @@ To compare two versions, time them in turns on the same card (parent,
 change, change, parent): ``--repo`` imports the package from DIR, which
 builds its kernel from its own sources.
 
-Output: one JSON line {"repo": ..., "gpu": ..., "shapes": [...]}.
+    python3 bem_bench.py --sass           # machine-code counts
+
+``--sass`` prints, per instantiation of the timed checkout's kernel, its
+static SASS instructions and MUFU operations, and what its innermost loop
+that holds MUFU.SIN runs per pass (less the slow paths a branch jumps
+over: sqrtf's outside its fast range, the row walk's second pass over a
+rare row) divided by the MUFU.SIN it runs: instructions per (i, j, q) of
+the row walk (the row loop holds all nq points, with the row's own
+instructions shared among them), per (i, j, q, k) of the band body's
+quadrature loop.
+
+Output: one JSON line {"repo": ..., "gpu": ..., "shapes": [...]} (with
+``--sass`` also {"sass": [...]}).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -52,11 +66,88 @@ SHAPES = (
 )
 
 
+FLAG_VARIANTS = {1: "double_layer", 5: "burton_miller", 3: "mixed", 15: "mixed_bm", 2: "kh",
+                 0: "kh_double"}  # kernels/bem_pairwise.cu template FLAGS
+KERNEL_NAME = re.compile(
+    r"(bem_pairwise_rows_kernel|bem_pairwise_kernel)<(\w+), (\d+)(?:, (\d+))?>")
+
+
+def sass_listing(kernels) -> dict:
+    """The machine code of every kernel of the built kernels/bem_pairwise.cu
+    of ``kernels`` (the kernel package of the checkout being timed), as
+    ``cuobjdump -sass`` lists it: {demangled name: [(address, instruction),
+    ...]}, NOPs left out."""
+    tool = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(kernels.build("bem_pairwise"))],
+                          capture_output=True, text=True, check=True)
+    out, current = {}, None
+    for line in proc.stdout.splitlines():
+        text = line.strip()
+        if text.startswith("Function : "):
+            symbol = text.split(":", 1)[1].strip()
+            name = subprocess.run(["c++filt", symbol], capture_output=True, text=True).stdout
+            current = out.setdefault(name.strip() or symbol, [])
+        elif current is not None and text.startswith("/*") and "*/" in text:
+            addr, rest = text[2:].split("*/", 1)
+            instr = rest.split("/*")[0].strip().rstrip(";").strip()
+            if instr and not instr.startswith("NOP"):
+                current.append((int(addr, 16), instr))
+    return out
+
+
+def hot_loop(code):
+    """The innermost loop that holds MUFU.SIN, less the code that a forward
+    branch inside it jumps over where that code holds a CALL (sqrtf's slow
+    path) or a MUFU.SIN (the row walk's second pass over a row with an r^2
+    outside the fast path): {instructions, mufu, sin} of what runs per pass,
+    or None (double: no MUFU.SIN)."""
+    branches = [(addr, int(dst, 16)) for addr, ins in code
+                for dst in re.findall(r"BRA (0x[0-9a-f]+)", ins)]
+    for head, end in sorted(((dst, addr) for addr, dst in branches if dst < addr),
+                            key=lambda loop: loop[1] - loop[0]):
+        body = [(addr, ins) for addr, ins in code if head <= addr <= end]
+        if not any("MUFU.SIN" in ins for _, ins in body):
+            continue
+        cold = set()
+        for addr, dst in branches:
+            if head <= addr < dst <= end and "@" in dict(code)[addr]:
+                skipped = [(a, i) for a, i in body if addr < a < dst]
+                if any("CALL" in i or "MUFU.SIN" in i for _, i in skipped):
+                    cold.update(a for a, _ in skipped)
+        hot = [ins for addr, ins in body if addr not in cold]
+        sins = sum("MUFU.SIN" in ins for ins in hot)
+        return dict(instructions=len(hot), mufu=sum("MUFU" in ins for ins in hot), sin=sins,
+                    per_sin=round(len(hot) / sins, 2))
+    return None
+
+
+def sass_counts(kernels) -> list:
+    """Per instantiation of kernels/bem_pairwise.cu: its body, variant,
+    dtype, nq (row walk: 0 for any nq but 1 and 4), static instructions,
+    MUFU operations, MUFU.RSQ, and its ``hot_loop``."""
+    rows = []
+    for name, code in sass_listing(kernels).items():
+        m = KERNEL_NAME.search(name)
+        if not m:
+            continue
+        walk = m.group(1) == "bem_pairwise_rows_kernel"
+        flags = int(m.group(3))
+        rows.append(dict(body="row walk" if walk else "band",
+                         variant=FLAG_VARIANTS.get(flags, flags), dtype=m.group(2),
+                         nq=int(m.group(4)) if walk else None,
+                         instructions=len(code), mufu=sum("MUFU" in i for _, i in code),
+                         rsq=sum("MUFU.RSQ" in i for _, i in code), loop=hot_loop(code)))
+    return sorted(rows, key=lambda r: (r["body"], r["variant"], r["dtype"], r["nq"] or 0))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent),
                     help="checkout whose mathaudio_tpu_torch package is timed")
-    repo = str(Path(ap.parse_args().repo).resolve())
+    ap.add_argument("--sass", action="store_true",
+                    help="print machine-code counts per instantiation, then time")
+    args = ap.parse_args()
+    repo = str(Path(args.repo).resolve())
     sys.path.insert(0, repo)
     import torch
 
@@ -70,6 +161,13 @@ def main() -> int:
 
     if not ops.__file__.startswith(repo):
         raise AssertionError(f"imported {ops.__file__}, not the package under {repo}")
+    if args.sass:
+        from mathaudio_tpu_torch import kernels
+
+        counts = sass_counts(kernels)  # the timed checkout's package builds its own source
+        for row in counts:
+            print(f"sass {row}", flush=True)
+        print(json.dumps({"sass": counts}), flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     st = sweep.sweep_statics(icosphere(1.0, BEM_SUBDIV), dtype=torch.float32, device=dev)
@@ -94,8 +192,8 @@ def main() -> int:
         shapes.append(dict(variant=variant, shape=f"{x.shape[0]}x{st.qp.shape[0]}",
                            nf=ks.shape[0], k=[round(float(v), 4) for v in ks[:1]],
                            stream_ms=stream_ms, graph_ms=on_card))
-        print(f"{variant} {shapes[-1]['shape']} F={ks.shape[0]}: stream {stream_ms:.4f} ms, "
-              f"graph {on_card:.4f} ms", flush=True)
+        print(f"{variant} {shapes[-1]['shape']} F={ks.shape[0]}: "
+              f"stream {stream_ms:.4f} ms, graph {on_card:.4f} ms", flush=True)
     print(json.dumps({"repo": repo, "gpu": gpu_line(), "device": torch.cuda.get_device_name(0),
                       "shapes": shapes}), flush=True)
     return 0

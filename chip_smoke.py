@@ -67,7 +67,14 @@ Phases, each fatal on failure:
    at a ragged 300 x 333 shape with 3 wavenumbers and with 3 up to k = 50,
    float64 <= 1e-12 at N=320 (also up to k = 50), the far-field check of
    phase 5 (k r >= 50, <= 2e-6); time them at each of the
-   path's shapes, from Python and replayed from a CUDA graph;
+   path's shapes, from Python and replayed from a CUDA graph; then hold
+   each of the kernel's bodies against the twins: every variant with a row
+   walk and the band body, as the launcher picks them: every variant at
+   nq 1, 3 and 4, at ragged 300 x 333, 200 x 5000 and 300 x 5000 (8, 16
+   and 32 rows per block of the row walk) with k up to 50 in float32 and
+   float64, the sweep's variants also at one wavenumber, the far-field
+   check at one wavenumber, and the row walk's r against sqrtf at every
+   float32;
 9. run path 3 (a)-(d), each with the counts set to 0 just before and read
    just after (its kernels must have launched, each field evaluation and
    (c)'s Burton–Miller assembly as the one launch phases 8 and 5 held),
@@ -92,7 +99,9 @@ no CUDA device is present or any phase fails.
 
 from __future__ import annotations
 
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -108,9 +117,9 @@ WALLS = (1, 2, 3, 4, 5, 6)
 ROOM = dict(wall_tags=WALLS, absorption=0.15,
             listening_positions=((0.25, 0.25, 0.25), (0.7, 0.6, 0.4)))
 BENCH_N, BENCH_LEVELS, BENCH_FREQS, BENCH_CHUNK = 20, 3, 4096, 2048
-SWEEP_KNOBS = dict(mg_nu=1, mg_omega=1.0, mg_coarse_anchors=16, gmres_orth="cgs1",
-                   freq_chunk=BENCH_CHUNK, warm_stride=64, warm_restart=3,
-                   warm_interp="cubic")
+SWEEP_KNOBS = dict(mg_nu=1, mg_omega=1.0, mg_coarse_anchors=16, mg_cycle_type="v",
+                   gmres_orth="cgs1", mg_transfers="gather", freq_chunk=BENCH_CHUNK,
+                   warm_stride=64, warm_restart=3, warm_interp="cubic")
 KERNEL_SOURCE = "mathaudio_tpu_torch/kernels/dia_stencil.cu"
 TPU_KERNEL = "mathaudio_tpu/fem/dia.py:212"
 MODES = ("matvec", "residual", "jacobi")
@@ -152,6 +161,16 @@ LARGE_K = 50.0  # k r up to 100 rad on the unit sphere, 150 from the field point
 # The far-field check (phases 5 and 8): entries with k r >= FAR_KR, float32,
 # one quadrature point per element, relative error per plane <= FAR_TOL.
 FAR_KR, FAR_TOL = 50.0, 2e-6
+# The kernel's bodies (phase 8), as the launcher picks them: every variant
+# at each nq the row walk holds in registers (1, 4) and one it reads per row
+# (3), at ragged (rows, elements) of the bench sphere that give the row walk
+# 8, 16 and 32 rows per block at BODY_KS (on an H100's 114-132 SMs; mixed_bm
+# keeps 8), the rows no multiple of theirs and the elements none of a warp;
+# the sweep's variants also at one wavenumber (the row walk; the band body
+# at BODY_KS).
+BODY_NQ = (1, 3, 4)
+BODY_SHAPES = ((300, 333), (200, 5000), (300, 5000))
+BODY_KS = (1.5, LARGE_K / 2, LARGE_K)
 PATH3_GMRES_TOL = 1e-5
 FIELD_SHAPE = (64, 128)  # 8192 points on r = 2
 CAVITY_SHAPE = (16, 32)  # 512 points on r = 0.5, inside the cavity
@@ -819,6 +838,7 @@ def bem_path(dev, counters):
 
     # 8-10. path 3, the single-frequency BEM engines
     records.update(single_k_kernel_phase(ops, statics, statics64, dev))
+    log(f"kernel bodies: {body_phase(ops, statics, dev)} checks passed")
     del statics, statics64
     torch.cuda.empty_cache()
     launches, by_case, runs3 = path3(dev, counters)
@@ -905,6 +925,63 @@ def single_k_kernel_phase(ops, statics, statics64, dev):
         check(f"f64 {n64} x {n64} F=3 k<={LARGE_K:g}", variant,
               args(variant, statics64, points, n64, n64, large), 1e-12)
     return records
+
+
+def body_phase(ops, statics, dev):
+    """Phase 8, the kernel's bodies as the launcher picks them: every
+    variant at each nq of BODY_NQ and each (rows, elements) of BODY_SHAPES
+    (the bench sphere's, cast to float32 and float64), with k of BODY_KS in
+    one launch and, for the sweep's variants, k = 50 alone (the row walk at
+    F = 1; the band body at F = 3), held against its twin (float32 <= 1e-5,
+    float64 <= 1e-12 per plane, the surface's own points off the diagonal);
+    the far-field check at one wavenumber (k = 50, the row walk at nq 1);
+    and the row walk's radius (one MUFU.RSQ for r and 1/r) against sqrtf at
+    every float32. Returns the number of body checks."""
+    import torch
+
+    twin = twin_pairwise(ops)
+    points = torch.tensor(field_points(), dtype=torch.float32, device=dev)
+    bad = ops.radius_mismatches(dev)
+    log(f"kernel radius: {bad} of 2^32 floats r^2 where the row walk's r or 1/r differs in a "
+        f"bit from sqrtf / rsqrtf (must be 0)")
+    if bad:
+        raise AssertionError(f"the row walk's r is not sqrtf at {bad} floats")
+    checks = 0
+    for variant in BEM_PLANES:
+        field = variant in FIELD_VARIANTS
+        bands = (BODY_KS, (LARGE_K,)) if variant in ("double_layer", "burton_miller") else (BODY_KS,)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            worst = 0.0
+            for (ni, nj), nq, band in itertools.product(BODY_SHAPES, BODY_NQ, bands):
+                x = points[:ni] if field else statics.centers[:ni]
+                nx = None if field else statics.normals[:ni].to(dtype)
+                a = (x.to(dtype).contiguous(), nx, statics.qp[:nj, :nq].to(dtype).contiguous(),
+                     statics.normals[:nj].to(dtype), statics.qw[:nj, :nq].to(dtype).contiguous(),
+                     torch.tensor(band, dtype=dtype, device=dev))
+                ref = twin(variant, *a)
+                got = ops.bem_pairwise(variant, *a)
+                torch.cuda.synchronize()
+                for plane, g, r in zip(BEM_PLANES[variant], got, ref):
+                    if plane is None:
+                        continue
+                    if not field:
+                        g, r = _zero_diagonal(g.clone()), _zero_diagonal(r.clone())
+                    rel = float(torch.linalg.vector_norm(g - r) / torch.linalg.vector_norm(r))
+                    if not rel <= tol:
+                        raise AssertionError(f"{variant} {dtype} {ni} x {nj} nq={nq} F={len(band)} "
+                                             f"{plane}: kernel disagrees with its twin ({rel:.3e})")
+                    worst = max(worst, rel)
+                checks += 1
+                del got, ref
+            log(f"kernel bodies {variant} {str(dtype).replace('torch.', '')} {BODY_SHAPES} nq "
+                f"{BODY_NQ} F {sorted({len(b) for b in bands})} k<={LARGE_K:g}: worst plane rel "
+                f"err {worst:.3e} (tol {tol:g})")
+        x = points[:1280] if field else statics.centers[:1280]
+        far_field_check(f"f32 1280 x {statics.centers.shape[0]} nq=1 F=1 k={LARGE_K:g}", ops, twin,
+                        variant, x, None if field else statics.normals[:1280], statics,
+                        torch.tensor([LARGE_K], device=dev))
+    torch.cuda.empty_cache()
+    return checks
 
 
 def pulsating_exact(points, k):
@@ -1225,7 +1302,7 @@ def main() -> int:
                          "device time by kernel and the device's idle share")
     ap.add_argument("--ptxas", action="store_true",
                     help="also print the registers, shared memory and spills ptxas reports for "
-                         "every kernel of both sources")
+                         "every kernel of both sources, and fail if any kernel spills")
     cli = ap.parse_args()
     profile = cli.profile
     t_start = time.perf_counter()
@@ -1260,6 +1337,9 @@ def main() -> int:
         for name in sources:
             for line in kernels.ptxas_report(name):
                 log(f"ptxas {name}: {line}")
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if spill and spill.groups() != ("0", "0"):
+                    raise AssertionError(f"a kernel spills registers: {line}")
 
     # host build at the bench shape (float32) and a small float64 one
     t0 = time.perf_counter()

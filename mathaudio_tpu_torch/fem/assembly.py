@@ -63,10 +63,13 @@ def _tensor(a, dtype, device):
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
-def assemble_stiffness_mass(mesh: Mesh, dtype, device, quad_order: int = 2):
-    """K and M value vectors over a shared CSR sparsity.
+def assemble_stiffness_mass(mesh: Mesh, dtype=None, quad_order: int = 2, *, device=None):
+    """K and M value vectors over a shared CSR sparsity, in ``dtype``
+    (default float32) on ``device`` (default the GPU: ``resolve_device``).
 
     Returns (csr_structure, k_vals, m_vals, slot metadata dict)."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
     tab = element_tables(mesh.element_type, quad_order)
     nv = tab.nv
     elems = mesh.elements
@@ -148,9 +151,13 @@ def _find_slots(csr: CsrMatrix, rows, cols):
     return slots
 
 
-def assemble_boundary_mass(mesh: Mesh, tag: int, csr: CsrMatrix, dtype, device):
+def assemble_boundary_mass(mesh: Mesh, tag: int, csr: CsrMatrix, slot_map_unused=None,
+                           dtype=None, *, device=None):
     """B_tag on the volume sparsity: B_ij = int_{Gamma_tag} phi_i phi_j dS,
-    as a (nnz,) value vector aligned with ``csr``."""
+    as a (nnz,) value vector aligned with ``csr``. ``slot_map_unused`` is
+    the reference's unused slot, kept for its positional order."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
     sel = mesh.boundary_markers == tag
     faces = mesh.boundary_faces[sel]
     if len(faces) == 0:
@@ -169,10 +176,13 @@ def assemble_boundary_mass(mesh: Mesh, tag: int, csr: CsrMatrix, dtype, device):
     return torch.zeros(csr.nnz, dtype=dtype, device=device).index_add_(0, slots, b_e.reshape(-1))
 
 
-def assemble_rhs(mesh: Mesh, source_fn: Callable, dtype, device, quad_order: int = 2):
+def assemble_rhs(mesh: Mesh, source_fn: Callable, dtype=None, quad_order: int = 2, *,
+                 device=None):
     """RHS vector b_i = int f phi_i dx via the same batched quadrature.
 
     ``source_fn`` maps coordinate tensors (..., d) -> scalar tensors."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
     tab = element_tables(mesh.element_type, quad_order)
     coords = _tensor(mesh.nodes[mesh.elements], dtype, device)
     phi = _tensor(tab.phi, dtype, device)
@@ -202,7 +212,7 @@ class HelmholtzAssembler:
         self.dtype = dtype
         self.cdtype = complex_dtype_for(dtype)
         self.device = device
-        csr, k_vals, m_vals, meta = assemble_stiffness_mass(mesh, dtype, device)
+        csr, k_vals, m_vals, meta = assemble_stiffness_mass(mesh, dtype, device=device)
         self.csr = csr
         self.k_vals = k_vals
         self.m_vals = m_vals
@@ -210,7 +220,8 @@ class HelmholtzAssembler:
         self.col_of_slot = torch.as_tensor(csr.indices.astype(np.int32), device=device)
         self.robin_tags = tuple(robin_tags)
         self.b_vals = {
-            tag: assemble_boundary_mass(mesh, tag, csr, dtype, device) for tag in self.robin_tags
+            tag: assemble_boundary_mass(mesh, tag, csr, dtype=dtype, device=device)
+            for tag in self.robin_tags
         }
         self.num_nodes = mesh.num_nodes
 

@@ -10,7 +10,7 @@ chained by Newton-Schulz refinement.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -151,10 +151,18 @@ class GeometricMultigrid:
         meshes: Sequence[Mesh],
         robin_tags: Sequence[int] = (),
         dtype=None,
+        grid_dims: Optional[Sequence] = None,
+        *,
         device=None,
     ):
         """Isotropic box hierarchies (each level's grid size is inferred
-        from its node count)."""
+        from its node count). The reference's ``grid_dims`` (anisotropic
+        grids) comes with the single-vector multigrid of slice 6."""
+        if grid_dims is not None:
+            raise ValueError(
+                "GeometricMultigrid(grid_dims=...) (anisotropic grids) is not ported yet: it "
+                "comes with slice 6 of the port; leave it None for isotropic box hierarchies"
+            )
         self.dtype = dtype or default_float()
         self.cdtype = complex_dtype_for(self.dtype)
         self.device = resolve_device(device)
@@ -198,18 +206,28 @@ class GeometricMultigrid:
         self.builder = MgBuilder(tuple(lvls))
 
 
-def coarse_embedded(builder: MgBuilder, k, robin_coeff, shift: Tuple[float, float] = (1.0, 0.5)):
+def coarse_embedded(builder: MgBuilder, k, robin_coeff=0.0,
+                    shift: Tuple[float, float] = (1.0, 0.5)):
     """(A, 2Nc, 2Nc) real-embedded dense coarsest shifted operators, one
-    per wavenumber of ``k`` (A,) with boundary coefficients
-    ``robin_coeff`` (A,) complex."""
+    per wavenumber of ``k`` (A,), with boundary coefficients
+    ``robin_coeff``: (A,) complex, or one value for all (default 0, no
+    boundary term). A scalar ``k``, as the reference takes it, gives its
+    one (2Nc, 2Nc) operator."""
     bl = builder.levels[-1]
     b1, b2 = shift
     cd = complex_dtype_for(bl.k_vals.dtype)
-    zshift = torch.tensor(b1 + 1j * b2, dtype=cd, device=k.device)
+    dev = bl.k_vals.device
+    k = k.to(dev) if torch.is_tensor(k) else torch.tensor(k, dtype=bl.k_vals.dtype, device=dev)
+    scalar = k.dim() == 0
+    k = k.reshape(-1)
+    robin = (robin_coeff.to(dev, cd) if torch.is_tensor(robin_coeff)
+             else torch.tensor(robin_coeff, dtype=cd, device=dev))
+    robin = robin.reshape(-1).expand(k.shape[0])
+    zshift = torch.tensor(b1 + 1j * b2, dtype=cd, device=dev)
     vals = (
         bl.k_vals.to(cd)[None, :]
         - (zshift * (k**2).to(cd))[:, None] * bl.m_vals.to(cd)[None, :]
-        + robin_coeff.to(cd)[:, None] * bl.b_sum.to(cd)[None, :]
+        + robin[:, None] * bl.b_sum.to(cd)[None, :]
     )
     n_a, n = vals.shape[0], bl.num_nodes
     dense = torch.zeros((n_a, n, n), dtype=cd, device=vals.device)
@@ -217,7 +235,8 @@ def coarse_embedded(builder: MgBuilder, k, robin_coeff, shift: Tuple[float, floa
     dense.index_put_((a_idx, bl.row_of_slot.long()[None, :], bl.col_of_slot.long()[None, :]),
                      vals, accumulate=True)
     ar, ai = dense.real, dense.imag
-    return torch.cat([torch.cat([ar, -ai], dim=2), torch.cat([ai, ar], dim=2)], dim=1)
+    out = torch.cat([torch.cat([ar, -ai], dim=2), torch.cat([ai, ar], dim=2)], dim=1)
+    return out[0] if scalar else out
 
 
 def build_coarse_inv_chain(

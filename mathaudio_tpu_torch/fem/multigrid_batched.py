@@ -12,7 +12,7 @@ matrix product per visit.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,14 +40,39 @@ class DiaMg(NamedTuple):
     anchor_inv: torch.Tensor  # (n_anchor, 2Nc, 2Nc)
 
 
-def make_dia_mg(levels: Tuple[DiaLevel, ...], ks, absorption: float, anchor_inv,
-                shift: Tuple[float, float] = (1.0, 0.5)) -> DiaMg:
+def make_dia_mg(
+    offsets: Tuple[Tuple[int, ...], ...],
+    levels: Tuple[DiaLevel, ...],
+    ks,
+    absorption: float,
+    anchor_inv,
+    shift: Tuple[float, float] = (1.0, 0.5),
+    tp: Tuple[tuple, ...] = (),
+    fuse_diag: bool = True,
+    dims: Tuple[Tuple[int, int, int], ...] = (),
+    transfer_bf16: bool = False,
+) -> DiaMg:
     """Per-frequency scalars for one solve batch.
 
     Level 0 smooths on the TRUE operator (cm = k^2, the fine system);
     deeper levels use the shifted-Laplacian operator cm = (b1 + i b2) k^2.
     Inverse diagonals are never stored: the Jacobi kernel recomputes them
-    (the reference's ``fuse_diag=True`` default)."""
+    (the reference's ``fuse_diag=True`` default). ``offsets`` are the
+    levels' static diagonal offsets, checked against their tables. The
+    reference's other transfer forms (``tp``, ``dims``, ``transfer_bf16``)
+    and ``fuse_diag=False`` come with slice 6 of the port."""
+    if tp or dims or transfer_bf16 or not fuse_diag:
+        raise ValueError(
+            "make_dia_mg: the tensor-product and streamed transfers (tp=, dims=, "
+            "transfer_bf16=True) and fuse_diag=False are not ported yet: they come with "
+            "slice 6 of the port"
+        )
+    if len(offsets) != len(levels) or any(
+            len(offs) != lvl.tables.k.shape[0] for offs, lvl in zip(offsets, levels)):
+        raise ValueError(
+            f"make_dia_mg: offsets of {[len(o) for o in offsets]} diagonals do not match the "
+            f"levels' tables of {[lvl.tables.k.shape[0] for lvl in levels]}"
+        )
     cd = complex_dtype_for(levels[0].tables.k.dtype)
     k = ks.to(cd)
     b1, b2 = shift
@@ -97,12 +122,33 @@ def _coarse_solve_b(anchor_inv, r):
     return torch.complex(x2[:nc], x2[nc:]).to(r.dtype)
 
 
-def mg_cycle_batched(mgp: DiaMg, offsets: Tuple[Tuple[int, ...], ...], r,
-                     omega: float = 2.0 / 3.0, nu=1, level: int = 0, nu_post=None):
+def check_cycle(cycle: str) -> None:
+    """The reference's cycle types: "v" runs; "w" and "f" come with slice 6."""
+    if cycle not in ("v", "w", "f"):
+        raise ValueError(f"unknown multigrid cycle type {cycle!r}")
+    if cycle != "v":
+        raise ValueError(
+            f"multigrid cycle type {cycle!r} is not ported yet: W and F cycles come with "
+            "slice 6 of the port; the V-cycle (\"v\") runs"
+        )
+
+
+def mg_cycle_batched(
+    mgp: DiaMg,
+    offsets: Tuple[Tuple[int, ...], ...],
+    r,
+    omega: float = 2.0 / 3.0,
+    nu: int = 1,
+    level: int = 0,
+    cycle: str = "v",
+    nu_post: Optional[int] = None,
+):
     """One batched V-cycle: x ~ P^{-1} r, r (N_l, F).
 
     ``nu``/``nu_post``: pre/post smoothing steps, an int or a per-level
-    tuple (``nu_post=None`` = ``nu``). W and F cycles are later work."""
+    tuple (``nu_post=None`` = ``nu``). ``cycle``: the reference's cycle
+    type; "v" runs, "w" and "f" raise (``check_cycle``)."""
+    check_cycle(cycle)
     if level == len(mgp.levels):
         return _coarse_solve_b(mgp.anchor_inv, r)
     if nu_post is None:
@@ -121,7 +167,7 @@ def mg_cycle_batched(mgp: DiaMg, offsets: Tuple[Tuple[int, ...], ...], r,
             x = dia_jacobi(offs, lvl.tables, cm, cb, x, r, omega)
         res = dia_residual(offs, lvl.tables, cm, cb, x, r)
     rc = _restrict_b(lvl, res)
-    xc = mg_cycle_batched(mgp, offsets, rc, omega, nu, level + 1, nu_post)
+    xc = mg_cycle_batched(mgp, offsets, rc, omega, nu, level + 1, cycle, nu_post)
     x = x + _prolong_b(lvl, xc)
     for _ in range(nu_post_here):
         x = dia_jacobi(offs, lvl.tables, cm, cb, x, r, omega)

@@ -75,7 +75,7 @@ class RoomSweepModel:
             r2 = torch.sum((x - torch.as_tensor(src, dtype=x.dtype, device=x.device)) ** 2, dim=-1)
             return torch.exp(-r2 / sw) / norm
 
-        rhs = assemble_rhs(mesh, source_fn, dtype, device).to(self.assembler.cdtype)
+        rhs = assemble_rhs(mesh, source_fn, dtype, device=device).to(self.assembler.cdtype)
 
         # Nearest-node listening positions (P1-exact at nodes).
         lp = np.asarray(listening_positions)[:, : mesh.dim]

@@ -28,7 +28,12 @@ from mathaudio_tpu_torch.fem.multigrid import (
     MgBuilder,
     build_coarse_inv_chain,
 )
-from mathaudio_tpu_torch.fem.multigrid_batched import DiaLevel, make_dia_mg, mg_cycle_batched
+from mathaudio_tpu_torch.fem.multigrid_batched import (
+    DiaLevel,
+    check_cycle,
+    make_dia_mg,
+    mg_cycle_batched,
+)
 from mathaudio_tpu_torch.models.helmholtz_room import RoomSweepModel
 from mathaudio_tpu_torch.solvers.krylov import KrylovConfig
 from mathaudio_tpu_torch.solvers.krylov_batched import gmres_batched
@@ -112,11 +117,13 @@ class NodeMajorRoomSweep:
         self,
         config: Optional[KrylovConfig] = None,
         mg_shift: Tuple[float, float] = (1.0, 0.5),
-        mg_nu=2,
+        mg_nu: int = 2,
         mg_omega: float = 2.0 / 3.0,
         mg_coarse_anchors: int = 0,
         mg_nu_post=None,
+        mg_cycle_type: str = "v",
         gmres_orth: str = "cgs2",
+        mg_transfers: str = "gather",
         freq_chunk: int = 0,
         warm_stride: int = 0,
         warm_restart: int = 0,
@@ -138,10 +145,19 @@ class NodeMajorRoomSweep:
         ``warm_restart`` (0 = config.restart); anchor lanes report
         phase-1 + phase-2 iterations.
 
-        The preconditioner is the reference's default: a V-cycle with
-        gather transfers (its ``mg_cycle_type="v"``,
-        ``mg_transfers="gather"``); the other forms are later work."""
+        ``mg_cycle_type`` and ``mg_transfers`` take the reference's values:
+        the V-cycle ("v") with gather transfers ("gather") runs; W and F
+        cycles and the "tp", "stream" and "stream16" transfers raise a
+        ValueError naming slice 6 of the port, which brings them."""
         config = config or KrylovConfig(max_iterations=300, tolerance=1e-5, restart=30)
+        if mg_transfers not in ("gather", "tp", "stream", "stream16"):
+            raise ValueError(f"unknown mg_transfers {mg_transfers!r}")
+        if mg_transfers != "gather":
+            raise ValueError(
+                f"mg_transfers={mg_transfers!r} is not ported yet: the tensor-product and "
+                "streamed transfers come with slice 6 of the port; \"gather\" runs"
+            )
+        check_cycle(mg_cycle_type)
         if gmres_orth not in ("cgs1", "cgs2"):
             raise ValueError(f"unknown orthogonalization {gmres_orth!r}")
         if warm_stride > 1 and warm_interp not in ("linear", "cubic"):
@@ -189,12 +205,13 @@ class NodeMajorRoomSweep:
                 torch.tensor(-1j * absorption, dtype=cd, device=k.device) * anchor_ks.to(cd),
                 shift=mg_shift,
             )
-            mgp = make_dia_mg(params.levels, ks, absorption, anchor_inv, shift=mg_shift)
+            mgp = make_dia_mg(offsets, params.levels, ks, absorption, anchor_inv, shift=mg_shift)
             tabs = params.fine_tables
             a_mv = lambda x: dia_matvec(offsets[0], tabs, cm_fine, cb_fine, x)  # noqa: E731
             a_res = lambda b, x: dia_residual(offsets[0], tabs, cm_fine, cb_fine, x, b)  # noqa: E731
             pre = lambda r: mg_cycle_batched(  # noqa: E731
-                mgp, offsets, r, omega=mg_omega, nu=mg_nu, nu_post=mg_nu_post,
+                mgp, offsets, r, omega=mg_omega, nu=mg_nu, cycle=mg_cycle_type,
+                nu_post=mg_nu_post,
             )
             b = params.rhs[:, None].expand(n, nf).contiguous()
             return gmres_batched(a_mv, b, config=cfg, preconditioner=pre,

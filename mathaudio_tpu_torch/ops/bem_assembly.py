@@ -4,7 +4,7 @@ mathaudio_tpu/ops/bem_assembly.py).
 
 For points x_i (collocation points with normals nx, or field points) and
 elements j (quadrature points yq, weights w, normals ny) over a band of
-wavenumbers ``ks`` (F,):
+wavenumbers ``k`` (F,):
 
 - ``pairwise_double_layer`` -> (D_k (F, Ni, Nj) complex, D_0 (Ni, Nj) real)
 - ``pairwise_bm``           -> (D_k, D_0, T_k (F, Ni, Nj), T_0 (Ni, Nj))
@@ -17,14 +17,18 @@ with D the double layer sum_q w dG/dn_y, S the single layer sum_q w G, T
 the hypersingular sum_q w n_x.grad_x(n_y.grad_y G), K' the adjoint double
 layer sum_q w dG/dn_x, and the 0 subscripts the Laplace limits, which do
 not depend on k and come back once. The reference's ``vmap`` over
-wavenumbers (or its single k) is the leading F dimension here.
+wavenumbers is the leading F dimension here; a scalar ``k``, as the
+reference takes it, gives the reference's planes without that dimension.
 
-Each dispatches by device only: a CUDA tensor launches the hand-written
-Hopper kernel (kernels/bem_pairwise.cu), a CPU tensor runs the plain
-PyTorch twin (``*_ref``) beside it, and any other device raises. On CUDA
-a build or launch failure raises; nothing falls back to the twins. The
-i == j entries are singular and are overwritten by the assembly: compare
-the two forms off the diagonal.
+Each takes the reference's ``force`` (its ``_use_pallas``) and dispatches
+by device: a CUDA tensor launches the hand-written Hopper kernel
+(kernels/bem_pairwise.cu) under "auto" (the default) and "pallas", and
+raises under "xla", since the port runs no twin on the card; a CPU tensor
+runs the plain PyTorch twin (``*_ref``) beside it under "auto" and "xla",
+and raises under "pallas", since the kernel needs the card. Any other
+device raises. On CUDA a build or launch failure raises; nothing falls
+back to the twins. The i == j entries are singular and are
+overwritten by the assembly: compare the two forms off the diagonal.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from mathaudio_tpu_torch.xtypes import complex_dtype_for
 
 MAX_QUAD = 16  # kernels/bem_pairwise.cu kMaxQuad
+FORCES = ("auto", "pallas", "xla")
 _PI4 = 4.0 * math.pi
 # variant: (number in kernels/bem_pairwise.cu, takes nx, D_0, S_k, T_k (+ T_0), K'_k)
 _VARIANTS = {
@@ -197,7 +202,25 @@ def _library():
         for fn in (lib.bem_pairwise_f32, lib.bem_pairwise_f64):
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+        lib.bem_radius_mismatches.argtypes = [_PTR, _PTR]
+        lib.bem_radius_mismatches.restype = ctypes.c_int
     return lib
+
+
+def radius_mismatches(device) -> int:
+    """How many of the 2^32 float32 bit patterns r^2 give the row walk's r
+    (one MUFU.RSQ shared with 1/r) other bits than IEEE sqrtf, or its 1/r
+    other bits than the band body's rsqrtf (kernels/bem_pairwise.cu
+    ``radius``). 0 means r is sqrtf everywhere. Needs the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"radius_mismatches runs on a CUDA device, got {device}")
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    err = _library().bem_radius_mismatches(bad.data_ptr(),
+                                           torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bem_radius_mismatches launch failed: CUDA error {err}")
+    return int(bad)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -286,7 +309,7 @@ def bem_pairwise(variant: str, x, nx, yq, ny, w, ks):
 
 
 # --------------------------------------------------------------------------
-# Dispatch by device: CUDA -> kernel, CPU -> plain twin.
+# Dispatch, by ``force`` and device: CUDA -> kernel, CPU -> plain twin.
 # --------------------------------------------------------------------------
 
 
@@ -298,31 +321,78 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"BEM pairwise sums have no path for device {t.device}")
 
 
-def pairwise_double_layer(x, yq, ny, w, ks):
-    """(D_k (F, Ni, Nj) complex, D_0 (Ni, Nj) real) for wavenumbers ks (F,)."""
-    if _on_cuda(x):
-        return bem_pairwise("double_layer", x, None, yq, ny, w, ks)
-    return pairwise_double_layer_ref(x, yq, ny, w, ks)
+def _use_kernel(force: str, x: torch.Tensor) -> bool:
+    """The reference's ``_use_pallas`` (mathaudio_tpu/ops/bem_assembly.py),
+    by device: the kernel on the card, where "xla" raises; the plain twin on
+    the CPU, where "pallas" raises."""
+    if force not in FORCES:
+        raise ValueError(f"unknown force {force!r}: expected one of {FORCES}")
+    on_cuda = _on_cuda(x)
+    if force == "xla" and on_cuda:
+        raise ValueError(
+            "force='xla' asks for the plain twin, which the port runs on the CPU only: the "
+            f"inputs are on {x.device}, where force='auto' or 'pallas' launches the kernel"
+        )
+    if force == "pallas" and not on_cuda:
+        raise ValueError(
+            "force='pallas' asks for the hand-written CUDA kernel, which needs the card: "
+            f"the inputs are on {x.device} (force='auto' or 'xla' runs the plain twin there)"
+        )
+    return on_cuda
 
 
-def pairwise_bm(x, nx, yq, ny, w, ks):
-    """(D_k, D_0, T_k, T_0) for wavenumbers ks (F,)."""
-    if _on_cuda(x):
-        return bem_pairwise("burton_miller", x, nx, yq, ny, w, ks)
-    return pairwise_bm_ref(x, nx, yq, ny, w, ks)
+def _wavenumbers(k, x):
+    """``k`` as an (F,) band in ``x``'s dtype and device, and whether it was
+    one scalar wavenumber (the reference's form)."""
+    kt = torch.as_tensor(k, dtype=x.dtype, device=x.device)
+    return kt.reshape(-1), kt.dim() == 0
 
 
-def pairwise_mixed(x, nx, yq, ny, w, ks, with_bm: bool):
-    """(D_k, D_0, S_k, T_k, T_0, K'_k) for wavenumbers ks (F,); the last
+def _single(planes, scalar: bool):
+    """Drop the band dimension of the k-dependent planes of a scalar ``k``:
+    the reference's (Ni, Nj) planes."""
+    if not scalar:
+        return planes
+    return tuple(p[0] if p is not None and p.is_complex() else p for p in planes)
+
+
+def pairwise_double_layer(x, yq, ny, w, k, force: str = "auto"):
+    """(D_k (F, Ni, Nj) complex, D_0 (Ni, Nj) real) for wavenumbers k (F,)."""
+    ks, scalar = _wavenumbers(k, x)
+    if _use_kernel(force, x):
+        out = bem_pairwise("double_layer", x, None, yq, ny, w, ks)
+    else:
+        out = pairwise_double_layer_ref(x, yq, ny, w, ks)
+    return _single(out, scalar)
+
+
+def pairwise_bm(x, nx, yq, ny, w, k, force: str = "auto"):
+    """(D_k, D_0, T_k, T_0) for wavenumbers k (F,)."""
+    ks, scalar = _wavenumbers(k, x)
+    if _use_kernel(force, x):
+        out = bem_pairwise("burton_miller", x, nx, yq, ny, w, ks)
+    else:
+        out = pairwise_bm_ref(x, nx, yq, ny, w, ks)
+    return _single(out, scalar)
+
+
+def pairwise_mixed(x, nx, yq, ny, w, k, with_bm: bool, force: str = "auto"):
+    """(D_k, D_0, S_k, T_k, T_0, K'_k) for wavenumbers k (F,); the last
     three are None without ``with_bm``."""
-    if _on_cuda(x):
-        return bem_pairwise("mixed_bm" if with_bm else "mixed", x, nx, yq, ny, w, ks)
-    return pairwise_mixed_ref(x, nx, yq, ny, w, ks, with_bm)
+    ks, scalar = _wavenumbers(k, x)
+    if _use_kernel(force, x):
+        out = bem_pairwise("mixed_bm" if with_bm else "mixed", x, nx, yq, ny, w, ks)
+    else:
+        out = pairwise_mixed_ref(x, nx, yq, ny, w, ks, with_bm)
+    return _single(out, scalar)
 
 
-def pairwise_kh(x, yq, ny, w, ks, want_single: bool = True):
-    """(S_k, D_k) at field points x for wavenumbers ks (F,); S_k is None
+def pairwise_kh(x, yq, ny, w, k, force: str = "auto", want_single: bool = True):
+    """(S_k, D_k) at field points x for wavenumbers k (F,); S_k is None
     without ``want_single`` (rigid surfaces: dp/dn = 0)."""
-    if _on_cuda(x):
-        return bem_pairwise("kh" if want_single else "kh_double", x, None, yq, ny, w, ks)
-    return pairwise_kh_ref(x, yq, ny, w, ks, want_single)
+    ks, scalar = _wavenumbers(k, x)
+    if _use_kernel(force, x):
+        out = bem_pairwise("kh" if want_single else "kh_double", x, None, yq, ny, w, ks)
+    else:
+        out = pairwise_kh_ref(x, yq, ny, w, ks, want_single)
+    return _single(out, scalar)

@@ -72,7 +72,8 @@ def _givens_host(a: complex, b: complex):
     return 1.0, 0.0j, phase * t
 
 
-def gmres(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=None):
+def gmres(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=None,
+          axis_name=None):
     """Restarted GMRES(m) with left preconditioning for one right-hand
     side ``b`` (N,).
 
@@ -88,7 +89,16 @@ def gmres(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=N
     to the host, one synchronisation per step, and the small Givens and
     triangular-solve arithmetic runs there in double precision; vectors
     and the basis stay on ``b``'s device. Float32 products run in true
-    float32 (no TF32)."""
+    float32 (no TF32).
+
+    ``axis_name`` (the reference's row-sharded vectors over a device mesh)
+    comes with the multi-GPU slice 8 of the port: anything but None
+    raises."""
+    if axis_name is not None:
+        raise ValueError(
+            f"gmres(axis_name={axis_name!r}): row-sharded GMRES over several devices is not "
+            "ported yet; it comes with slice 8 (multi-GPU) of the port"
+        )
     if isinstance(x0, KrylovConfig):
         raise TypeError("pass the solver config as gmres(a, b, config=...); "
                         "the third positional argument is the initial guess x0")

@@ -165,7 +165,7 @@ def test_cpu_dispatch_runs_twins_and_counts_nothing(geometry):
             assert (got is None and want is None) or torch.equal(got, want)
     pts, yq, ny, w = (torch.tensor(a) for a in _kh_inputs(geometry, "ragged"))
     for want_single in (True, False):
-        for got, want in zip(ops.pairwise_kh(pts, yq, ny, w, ks, want_single),
+        for got, want in zip(ops.pairwise_kh(pts, yq, ny, w, ks, want_single=want_single),
                              ops.pairwise_kh_ref(pts, yq, ny, w, ks, want_single)):
             assert (got is None and want is None) or torch.equal(got, want)
     assert ops.LAUNCHES == before
@@ -293,3 +293,59 @@ def test_far_field_phase_on_card(geometry, cuda_device, variant):
     for plane, err in errors.items():
         print(f"{variant} {plane}: far-field rel err {err:.3e}")
         assert err < chip_smoke.FAR_TOL, (plane, err)
+
+
+# The row walk of the kernel (kernels/bem_pairwise.cu), which runs every
+# launch of these variants: a thread keeps its element in registers (nq 1
+# and 4) or reads it again per row (any other nq, here 3) and walks the
+# block's rows, as many as the launcher picks. Held against the twin with
+# small and large wavenumbers (k r up to 100 rad on the surface, 150 from
+# the field points) in one band at ragged shapes: 150 rows of 300 elements
+# (8 rows per block; 150 is no multiple of 8, 300 none of a warp or of a
+# block of 128), and 2001 and 4001 points off the sphere, with their
+# directions as normals, against the 300 (16 and 32 rows per block on an
+# H100's 114-132 SMs, mixed_bm keeping its 8; the point counts are
+# multiples of neither).
+
+ROW_KS = [1.5, 25.0, 50.0]
+ROW_SHAPES = {"rows8": 150, "rows16": 2001, "rows32": 4001}
+
+
+def _row_walk_inputs(geometry, variant, dtype, device, nq, shape):
+    if variant.startswith("mixed"):
+        x, nx, yq, ny, w = _mixed_inputs(geometry, "ragged")
+    else:
+        (x, yq, ny, w), nx = _kh_inputs(geometry, "ragged"), None
+    if shape != "rows8":
+        d = np.random.default_rng(13).normal(size=(ROW_SHAPES[shape], 3))
+        u = d / np.linalg.norm(d, axis=1, keepdims=True)
+        x, nx = u * 1.5, (u if variant.startswith("mixed") else None)
+    yq, w = yq[:, :nq], w[:, :nq]
+    return tuple(None if a is None else torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                                     device=device)
+                 for a in (x, nx, yq, ny, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", SINGLE_K_VARIANTS)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("nq", [1, 3, 4])
+@pytest.mark.parametrize("shape", list(ROW_SHAPES))
+def test_row_walk_matches_twin_on_card(geometry, cuda_device, variant, dtype, tol, nq, shape):
+    x, nx, yq, ny, w = _row_walk_inputs(geometry, variant, dtype, cuda_device, nq, shape)
+    ks = torch.tensor(ROW_KS, dtype=dtype, device=cuda_device)
+    got = ops.bem_pairwise(variant, x, nx, yq, ny, w, ks)
+    mixed = variant.startswith("mixed")
+    ref = (ops.pairwise_mixed_ref(x, nx, yq, ny, w, ks, variant == "mixed_bm") if mixed
+           else ops.pairwise_kh_ref(x, yq, ny, w, ks, variant == "kh"))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if g is not None:
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert _rel(g, r, off_diagonal=mixed and shape == "rows8") < tol
+
+
+@pytest.mark.cuda
+def test_row_walk_radius_is_sqrtf_at_every_float(cuda_device):
+    assert ops.radius_mismatches(cuda_device) == 0

@@ -190,6 +190,50 @@ def test_kernel_matches_twin_on_card(geometry, cuda_device, variant, dtype, tol,
         assert _rel_off_diagonal(g, r) < tol
 
 
+# The sweep's variants through both bodies of the kernel, as the launcher
+# picks them: the band body over F > 1 wavenumbers (any nq), the row walk
+# at F = 1 (nq 1 and 4 held in registers, any other nq, here 3, read per
+# row), at ragged 300 x 300 (no multiple of 8 rows, of a warp or of a block
+# of 128) with small and large wavenumbers.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["double_layer", "burton_miller"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("nq", [1, 3, 4])
+@pytest.mark.parametrize("band", [[50.0], [1.5, 25.0, 50.0]], ids=["row_walk", "band"])
+def test_each_body_matches_twin_on_card(geometry, cuda_device, variant, dtype, tol, nq, band):
+    x, nx, yq, ny, w = (torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=cuda_device)
+                        for a in _inputs(geometry, "ragged300"))
+    yq, w = yq[:, :nq].contiguous(), w[:, :nq].contiguous()
+    ks = torch.tensor(band, dtype=dtype, device=cuda_device)
+    bm = variant == "burton_miller"
+    got = ops.bem_pairwise(variant, x, nx if bm else None, yq, ny, w, ks)
+    ref = (ops.pairwise_bm_ref(x, nx, yq, ny, w, ks) if bm
+           else ops.pairwise_double_layer_ref(x, yq, ny, w, ks))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert _rel_off_diagonal(g, r) < tol
+
+
+@pytest.mark.cuda
+def test_force_xla_raises_on_card(geometry, cuda_device):
+    """The port runs no twin on the card: force="xla" on CUDA tensors
+    raises instead of running it, for every wrapper."""
+    x, nx, yq, ny, w = (torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                                     device=cuda_device) for a in _inputs(geometry, "ragged300"))
+    before = dict(ops.LAUNCHES)
+    calls = (lambda: ops.pairwise_double_layer(x, yq, ny, w, 1.5, "xla"),
+             lambda: ops.pairwise_bm(x, nx, yq, ny, w, 1.5, "xla"),
+             lambda: ops.pairwise_mixed(x, nx, yq, ny, w, 1.5, True, "xla"),
+             lambda: ops.pairwise_kh(x, yq, ny, w, 1.5, "xla"))
+    for call in calls:
+        with pytest.raises(ValueError, match="force='xla'"):
+            call()
+    assert ops.LAUNCHES == before
+
+
 # --------------------------------------------------------------------------
 # The float kernel's range reduction, emulated on the CPU.
 # --------------------------------------------------------------------------

@@ -1,0 +1,309 @@
+"""Port vs reference: the parameters of the port's public functions.
+
+Each function below takes the reference's parameters (mathaudio_tpu, the
+same module path): the same names in the same order with the same defaults,
+so that a call written for the reference binds the same way; the port may
+add keyword-only parameters after them (``device``). Values the port does
+not run yet raise a ValueError that names the slice of the port that brings
+them. The node-major sweep is called with the keyword set of the reference's
+own bench (bench.py ``run``) and matches the reference in float64 on the
+CPU; the ``force`` of the BEM pairwise sums keeps the reference's meaning.
+"""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mathaudio_tpu.fem.assembly as jax_assembly
+import mathaudio_tpu.fem.multigrid as jax_multigrid
+import mathaudio_tpu.fem.multigrid_batched as jax_multigrid_batched
+import mathaudio_tpu.models.room_sweep_nm as jax_room_sweep_nm
+import mathaudio_tpu.ops.bem_assembly as jax_ops
+import mathaudio_tpu.solvers.direct as jax_direct
+import mathaudio_tpu.solvers.krylov as jax_krylov
+import mathaudio_tpu_torch.fem.assembly as assembly
+import mathaudio_tpu_torch.fem.multigrid as multigrid
+import mathaudio_tpu_torch.fem.multigrid_batched as multigrid_batched
+import mathaudio_tpu_torch.models.room_sweep_nm as room_sweep_nm
+import mathaudio_tpu_torch.ops.bem_assembly as ops
+import mathaudio_tpu_torch.solvers.direct as direct
+import mathaudio_tpu_torch.solvers.krylov as krylov
+from mathaudio_tpu.bem.mesh import icosphere as jax_icosphere
+from mathaudio_tpu.fem.multigrid import box_hierarchy as jax_box_hierarchy
+from mathaudio_tpu.models import RoomSweepModel as JaxRoomModel
+from mathaudio_tpu.solvers import KrylovConfig as JaxKrylovConfig
+from mathaudio_tpu_torch.models.helmholtz_room import RoomSweepModel
+
+# (port module, reference module, qualified name)
+MODULES = {
+    "models.room_sweep_nm": (room_sweep_nm, jax_room_sweep_nm),
+    "fem.multigrid_batched": (multigrid_batched, jax_multigrid_batched),
+    "fem.multigrid": (multigrid, jax_multigrid),
+    "fem.assembly": (assembly, jax_assembly),
+    "solvers.direct": (direct, jax_direct),
+    "solvers.krylov": (krylov, jax_krylov),
+    "ops.bem_assembly": (ops, jax_ops),
+}
+FUNCTIONS = [
+    ("models.room_sweep_nm", "NodeMajorRoomSweep.sweep_fn"),
+    ("fem.multigrid_batched", "make_dia_mg"),
+    ("fem.multigrid_batched", "mg_cycle_batched"),
+    ("fem.multigrid", "GeometricMultigrid"),
+    ("fem.multigrid", "coarse_embedded"),
+    ("fem.assembly", "assemble_stiffness_mass"),
+    ("fem.assembly", "assemble_boundary_mass"),
+    ("fem.assembly", "assemble_rhs"),
+    ("solvers.direct", "complex_solve"),
+    ("solvers.direct", "lu_solve"),
+    ("solvers.krylov", "gmres"),
+    ("ops.bem_assembly", "pairwise_double_layer"),
+    ("ops.bem_assembly", "pairwise_bm"),
+    ("ops.bem_assembly", "pairwise_mixed"),
+    ("ops.bem_assembly", "pairwise_kh"),
+]
+
+
+def _resolve(module, qualname):
+    obj = module
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _same_default(a, b):
+    """Equal defaults; a config object of each package compares by its
+    fields (the two packages' KrylovConfig classes differ)."""
+    if a is inspect.Parameter.empty or b is inspect.Parameter.empty:
+        return a is b
+    return a == b or repr(a) == repr(b)
+
+
+@pytest.mark.parametrize("where,qualname", FUNCTIONS, ids=[q for _, q in FUNCTIONS])
+def test_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    assert [p.name for p in port[:len(ref)]] == [p.name for p in ref]
+    for p, r in zip(port, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+    extras = port[len(ref):]
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY for p in extras), extras
+
+
+# --------------------------------------------------------------------------
+# The reference's bench call (bench.py ``run``, nm layout) at n=4.
+# --------------------------------------------------------------------------
+
+WALLS = (1, 2, 3, 4, 5, 6)
+ROOM = dict(wall_tags=WALLS, absorption=0.15,
+            listening_positions=((0.25, 0.25, 0.25), (0.7, 0.6, 0.4)))
+CONFIG = dict(max_iterations=500, tolerance=1e-5, restart=6)
+KS = np.linspace(0.55, 2.2, 32)
+# bench.py run(): nm.sweep_fn(config, mg_nu=nu, mg_omega=1.0,
+# mg_coarse_anchors=min(anchors, n_freq), mg_cycle_type=cycle,
+# gmres_orth=orth, mg_transfers=transfers, freq_chunk=freq_chunk,
+# mg_nu_post=nu_post, warm_stride=warm_stride, warm_restart=warm_restart,
+# warm_interp=warm_interp), with run()'s defaults at a band of 32
+BENCH_KEYWORDS = dict(mg_nu=1, mg_omega=1.0, mg_coarse_anchors=min(64, len(KS)),
+                      mg_cycle_type="v", gmres_orth="cgs1", mg_transfers="gather", freq_chunk=0,
+                      mg_nu_post=None, warm_stride=0, warm_restart=0, warm_interp="linear")
+
+
+@pytest.fixture(scope="module")
+def sweeps():
+    jm = jax_box_hierarchy(4, 2)
+    jmg = jax_multigrid.GeometricMultigrid(jm, robin_tags=WALLS)
+    jnm = jax_room_sweep_nm.NodeMajorRoomSweep(
+        JaxRoomModel(jm[0], assembler=jmg.assemblers[0], **ROOM), jmg)
+    tm = multigrid.box_hierarchy(4, 2)
+    tmg = multigrid.GeometricMultigrid(tm, robin_tags=WALLS, dtype=torch.float64, device="cpu")
+    tnm = room_sweep_nm.NodeMajorRoomSweep(
+        RoomSweepModel(tm[0], assembler=tmg.assemblers[0], **ROOM), tmg)
+    return jnm, tnm
+
+
+def test_bench_keyword_call_matches_reference(sweeps):
+    jnm, tnm = sweeps
+    fn = jax.jit(jnm.sweep_fn(JaxKrylovConfig(**CONFIG), **BENCH_KEYWORDS))  # as bench.py runs it
+    rp, rits, rconv = (np.asarray(a) for a in fn(jnm.params(), jnp.asarray(KS)))
+    p, its, conv = (t.numpy() for t in tnm.sweep_fn(krylov.KrylovConfig(**CONFIG),
+                                                    **BENCH_KEYWORDS)(tnm.params(), KS))
+    assert p.shape == rp.shape == (len(KS), 2)
+    np.testing.assert_array_equal(its, rits)
+    np.testing.assert_array_equal(conv, rconv)
+    assert conv.all()
+    np.testing.assert_allclose(p, rp, rtol=0, atol=1e-9 * np.abs(rp).max())
+
+
+# --------------------------------------------------------------------------
+# Values the port does not run yet: a ValueError naming the slice.
+# --------------------------------------------------------------------------
+
+
+def _dia_mg(**kw):
+    return multigrid_batched.make_dia_mg((), (), torch.zeros(1), 0.1, None, **kw)
+
+
+UNPORTED = {
+    "sweep_tp": (lambda nm: nm.sweep_fn(mg_transfers="tp"), "slice 6"),
+    "sweep_stream": (lambda nm: nm.sweep_fn(mg_transfers="stream"), "slice 6"),
+    "sweep_stream16": (lambda nm: nm.sweep_fn(mg_transfers="stream16"), "slice 6"),
+    "sweep_w_cycle": (lambda nm: nm.sweep_fn(mg_cycle_type="w"), "slice 6"),
+    "sweep_f_cycle": (lambda nm: nm.sweep_fn(mg_cycle_type="f"), "slice 6"),
+    "cycle_w": (lambda nm: multigrid_batched.mg_cycle_batched(None, (), None, cycle="w"), "slice 6"),
+    "cycle_f": (lambda nm: multigrid_batched.mg_cycle_batched(None, (), None, cycle="f"), "slice 6"),
+    "fuse_diag_false": (lambda nm: _dia_mg(fuse_diag=False), "slice 6"),
+    "tp": (lambda nm: _dia_mg(tp=((np.eye(2),) * 3,)), "slice 6"),
+    "dims": (lambda nm: _dia_mg(dims=((4, 4, 4), (2, 2, 2))), "slice 6"),
+    "transfer_bf16": (lambda nm: _dia_mg(transfer_bf16=True), "slice 6"),
+    "grid_dims": (lambda nm: multigrid.GeometricMultigrid([], grid_dims=[(4, 4, 4)]), "slice 6"),
+    "axis_name": (lambda nm: krylov.gmres(torch.eye(2), torch.ones(2), axis_name="rows"),
+                  "slice 8"),
+    # values the reference does not know either
+    "sweep_unknown_transfers": (lambda nm: nm.sweep_fn(mg_transfers="fft"), "unknown mg_transfers"),
+    "sweep_unknown_cycle": (lambda nm: nm.sweep_fn(mg_cycle_type="x"), "unknown multigrid cycle"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_value_names_its_slice(sweeps, case):
+    call, match = UNPORTED[case]
+    with pytest.raises(ValueError, match=match):
+        call(sweeps[1])
+
+
+def test_make_dia_mg_checks_offsets_against_levels(sweeps):
+    tnm = sweeps[1]
+    params = tnm.params()
+    ks = torch.tensor(KS[:4])
+    anchor = torch.zeros((1, 2, 2), dtype=torch.float64)
+    mgp = multigrid_batched.make_dia_mg(params.offsets, params.levels, ks, 0.15, anchor)
+    assert len(mgp.cms) == len(params.levels)
+    with pytest.raises(ValueError, match="do not match"):
+        multigrid_batched.make_dia_mg(params.offsets * 2, params.levels, ks, 0.15, anchor)
+    with pytest.raises(ValueError, match="do not match"):
+        multigrid_batched.make_dia_mg(((0, 1),), params.levels[:1], ks, 0.15, anchor)
+
+
+def test_coarse_embedded_takes_the_reference_call(sweeps):
+    """coarse_embedded(builder, k) with the reference's scalar k and its
+    default robin_coeff=0.0 gives the reference's (2Nc, 2Nc) operator."""
+    jnm, tnm = sweeps
+    got = multigrid.coarse_embedded(tnm.params().mg_builder, 1.3)
+    want = np.asarray(jax_multigrid.coarse_embedded(jnm.mg.builder, 1.3))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+    batch = multigrid.coarse_embedded(tnm.params().mg_builder, torch.tensor([1.3, 1.7]),
+                                      torch.tensor([0.2j, 0.2j]))
+    assert tuple(batch.shape) == (2,) + want.shape
+
+
+def test_assembly_dtype_defaults_and_device_keyword():
+    mesh = multigrid.box_hierarchy(2, 1)[0]
+    csr, k_vals, m_vals, _ = assembly.assemble_stiffness_mass(mesh, device="cpu")
+    assert k_vals.dtype == torch.float32 and k_vals.device.type == "cpu"
+    b = assembly.assemble_boundary_mass(mesh, 1, csr, None, torch.float64, device="cpu")
+    assert b.dtype == torch.float64 and b.shape == (csr.nnz,)
+    rhs = assembly.assemble_rhs(mesh, lambda x: x[..., 0], device="cpu")
+    assert rhs.dtype == torch.float32 and rhs.shape == (mesh.num_nodes,)
+
+
+@pytest.mark.parametrize("method", ["auto", "native", "embed", "qr"])
+@pytest.mark.parametrize("shape", [(), (3,)], ids=["single", "batched"])
+@pytest.mark.parametrize("rhs", ["vector", "matrix"])
+def test_direct_solve_methods(method, shape, rhs):
+    rng = np.random.default_rng(5)
+    n = 6
+    a = rng.normal(size=shape + (n, n)) + 1j * rng.normal(size=shape + (n, n)) + 4 * np.eye(n)
+    b = rng.normal(size=shape + ((n,) if rhs == "vector" else (n, 2))) + 0j
+    want = np.linalg.solve(a, b[..., None])[..., 0] if rhs == "vector" else np.linalg.solve(a, b)
+    for fn in (direct.complex_solve, direct.lu_solve):
+        got = fn(torch.tensor(a), torch.tensor(b), method=method)
+        assert got.dtype == torch.complex128
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    if not shape:  # the reference solves one system per call
+        ref = jax_direct.lu_solve(jnp.asarray(a), jnp.asarray(b), method=method)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-12)
+
+
+def test_direct_solve_takes_any_method_as_the_reference():
+    """The reference sends a method it does not name to its real embedding
+    and rejects none: neither does the port, which solves natively."""
+    a = np.array([[2.0 + 1j, 0.5], [0.25j, 3.0]])
+    b = np.array([1.0 + 0j, 2.0 - 1j])
+    got = direct.complex_solve(torch.tensor(a), torch.tensor(b), "qr")
+    ref = jax_direct.complex_solve(jnp.asarray(a), jnp.asarray(b), "qr")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-14)
+
+
+# --------------------------------------------------------------------------
+# ``force`` of the BEM pairwise sums on the CPU.
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bem_inputs():
+    """Icosphere subdiv 1 (80 elements), order-3 quadrature, and 24
+    exterior points, float64 numpy."""
+    mesh = jax_icosphere(1.0, 1)
+    qp, qw = mesh.quad_points(3)
+    rng = np.random.default_rng(11)
+    d = rng.normal(size=(24, 3))
+    pts = 2.0 * d / np.linalg.norm(d, axis=1, keepdims=True)
+    return mesh.centers, mesh.normals, qp, qw, pts
+
+
+def _call(name, force, k, x, nx, yq, ny, w, pts, module):
+    if name == "pairwise_double_layer":
+        return module.pairwise_double_layer(x, yq, ny, w, k, force)
+    if name == "pairwise_bm":
+        return module.pairwise_bm(x, nx, yq, ny, w, k, force)
+    if name == "pairwise_mixed":
+        return module.pairwise_mixed(x, nx, yq, ny, w, k, True, force)
+    return module.pairwise_kh(pts, yq, ny, w, k, force, True)
+
+
+def _off_diagonal(a):
+    a = np.array(a)
+    if a.ndim >= 2 and a.shape[-1] == a.shape[-2]:
+        ii = np.arange(a.shape[-1])
+        a[..., ii, ii] = 0.0
+    return a
+
+
+PAIRWISE = ["pairwise_double_layer", "pairwise_bm", "pairwise_mixed", "pairwise_kh"]
+
+
+@pytest.mark.parametrize("name", PAIRWISE)
+@pytest.mark.parametrize("force", ["auto", "xla"])
+def test_force_runs_the_twin_on_the_cpu_as_the_reference_call(bem_inputs, name, force):
+    """A reference-style call (scalar k, positional force) gives the
+    reference's planes; on the CPU "auto" and "xla" both run the twin and
+    launch nothing."""
+    c, n, qp, qw, pts = bem_inputs
+    before = dict(ops.LAUNCHES)
+    tensors = [torch.tensor(a) for a in (c, n, qp, n, qw, pts)]
+    got = _call(name, force, 1.4, *tensors, module=ops)
+    want = _call(name, "xla", 1.4, *(jnp.asarray(a) for a in (c, n, qp, n, qw, pts)),
+                 module=jax_ops)
+    assert ops.LAUNCHES == before
+    for g, r in zip(got, want):
+        if g is None:  # the reference's planes a port call leaves out
+            continue
+        assert tuple(g.shape) == np.shape(r)
+        np.testing.assert_allclose(_off_diagonal(g.numpy()), _off_diagonal(r), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", PAIRWISE)
+def test_force_pallas_needs_the_card(bem_inputs, name):
+    c, n, qp, qw, pts = bem_inputs
+    tensors = [torch.tensor(a) for a in (c, n, qp, n, qw, pts)]
+    with pytest.raises(ValueError, match="needs the card"):
+        _call(name, "pallas", torch.tensor([1.4]), *tensors, module=ops)
+    with pytest.raises(ValueError, match="unknown force"):
+        _call(name, "triton", torch.tensor([1.4]), *tensors, module=ops)
