@@ -28,6 +28,10 @@ ka = 2 under a plane wave with Burton–Miller, then the field at the same
 points; (d) the interior cavity at ka = 1 with a central monopole, LU, then
 the field at 512 interior points.
 
+Path 4 is slice 3's biquad cascade at bench.py ``run_iir``'s shape, and
+path 5 the auto-EQ path (differential evolution fitting a parametric EQ,
+then the autoeq CLI and its exporters), both on the card (phases 11-12).
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -86,10 +90,29 @@ Phases, each fatal on failure:
    3 synchronised repeats), GMRES iterations and peak device memory;
 10. check path 3's answers: at N=1280 (a) and (d) with the kernels vs with
    the twins on the card (<= 1e-4 of max|p|), and at N=320 in float64 the
-   card vs the CPU (<= 1e-9).
+   card vs the CPU (<= 1e-9);
+11. path 4, slice 3's biquad cascade at bench.py ``run_iir``'s shape (8192
+   channels x 10 PEAK stages x 48000 samples, float32, input from numpy's
+   default_rng(0)): a first run, then the median and minimum of 3
+   synchronised repeats, iir_biquad_cascade_msamples_per_s, peak device
+   memory and the bound (x read and y written once over the HBM rate);
+   gated on 64 channels against scipy's lfilter stage by stage in float64
+   on the host (float32 <= 1e-3 of max|y|, float64 on the card <= 1e-9)
+   and two half-blocks with carried state vs the whole block (float64,
+   <= 1e-12);
+12. path 5, the auto-EQ path on the card: (a) fit_peq on the reference
+   test's 3-filter target, 96 points, maxiter 500, seed 4 (rms <= 0.35 dB,
+   fitted response within 1 dB); (b) the autoeq CLI through main(argv) on a
+   CSV made from a known 7-filter PEQ with its defaults (-n 7 --maxiter
+   600): exit 0, the APO file parses back to 7 filters; (c) a second (a)
+   from the same seed gives the same population; generations, nfev, ms per
+   generation and seconds printed. Paths 4 and 5 launch no hand-written
+   kernel (slice 3 has no TPU kernel), so they add nothing to the kernels
+   line.
 With ``--profile``, once every phase has passed, one more run of each
-path runs under torch.profiler and its device time is printed by kernel
-group and kernel, with the device's idle share of the wall time.
+path (for path 5 a fit at maxiter 100) runs under torch.profiler and its
+device time is printed by kernel group and kernel, with the device's idle
+share of the wall time.
 
 Output: progress lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and last
@@ -439,7 +462,8 @@ def _kernel_group(name: str) -> str:
 def profile_run(label, run, kernel):
     """One ``run()`` under torch.profiler: device time by kernel group and
     by kernel, the device's idle share of the run's wall time, and how
-    many launches of the path's hand-written ``kernel`` the trace holds.
+    many launches of the path's hand-written ``kernel`` the trace holds
+    (when the path has one).
 
     A first ``run()`` is the profiler's warm-up step and is discarded:
     without it the trace may miss the first kernel it should hold."""
@@ -487,8 +511,9 @@ def profile_run(label, run, kernel):
         log(f"profile {label} group: {g}: {us / 1e3:.2f} ms ({100 * us / busy:.1f}% of busy)")
     for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         log(f"profile {label} kernel: {us / 1e3:.2f} ms in {count} calls: {name[:110]}")
-    seen = sum(count for name, (count, _) in by_name.items() if kernel in name)
-    log(f"profile {label}: {seen} launches of {kernel} in the trace")
+    if kernel:
+        seen = sum(count for name, (count, _) in by_name.items() if kernel in name)
+        log(f"profile {label}: {seen} launches of {kernel} in the trace")
 
 
 def bem_bound(variant, ni, nj, nq, nf, rdtype):
@@ -1291,6 +1316,191 @@ def path3_answers(ops, dev):
             answers(2, torch.float64, "cpu"), 1e-9)
 
 
+# Slice 3 (phase 11): bench.py ``run_iir``'s cascade on the card: 8192
+# channels x 10 PEAK stages (100 (i + 1) Hz, Q 1, (-1)^i 3 dB) x 48000
+# samples, float32; ~10 operations per sample and stage (feedforward 5,
+# recursion 4, the cast), under the bytes bound at this shape.
+IIR_CHANNELS, IIR_STAGES, IIR_T, IIR_GATE_CHANNELS = 8192, 10, 48000, 64
+IIR_OPS_PER_SAMPLE_STAGE = 10
+# Phase 12: the auto-EQ path. (a) is the reference's own test
+# (tests/test_dsp.py TestAutoEq): LS 120 Hz, PK 1800 Hz, HS 9000 Hz.
+AUTOEQ_TRUTH = (("LOWSHELF", 120.0, 0.9, 4.0), ("PEAK", 1800.0, 1.5, -5.0),
+                ("HIGHSHELF", 9000.0, 0.8, 2.5))
+AUTOEQ_CLI_TRUTH = (("LOWSHELF", 90.0, 0.8, -4.0), ("PEAK", 210.0, 2.0, 5.0),
+                    ("PEAK", 640.0, 1.2, -3.0), ("PEAK", 1500.0, 3.0, 2.5),
+                    ("PEAK", 3300.0, 1.8, -4.5), ("PEAK", 6800.0, 2.5, 3.0),
+                    ("HIGHSHELF", 11000.0, 0.7, -2.0))
+
+
+def iir_phase(dev):
+    """Phase 11: the biquad cascade at bench.py's shape, timed (a first run,
+    then the median and minimum of 3 synchronised repeats) against its
+    bound, then gated: 64 channels against scipy's sequential lfilter in
+    float64 on the host (float32 <= 1e-3 of max|y|; float64 on the card
+    <= 1e-9), and two half-blocks with carried state against the whole
+    block on the card in float64 (<= 1e-12). Returns a callable for the
+    profiler."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+
+    from mathaudio_tpu_torch.dsp import (
+        Biquad,
+        BiquadFilterType,
+        biquad_cascade_block,
+        biquad_process_block,
+        peq_coeff_matrix,
+    )
+
+    peq = [(1.0, Biquad(BiquadFilterType.PEAK, 100.0 * (i + 1), 48000.0, 1.0, (-1.0) ** i * 3.0))
+           for i in range(IIR_STAGES)]
+    t0 = time.perf_counter()
+    x_host = np.random.default_rng(0).standard_normal((IIR_CHANNELS, IIR_T), dtype=np.float32)
+    torch.cuda.empty_cache()
+    x = torch.from_numpy(x_host).to(dev)
+    cm = peq_coeff_matrix(peq, torch.float32, device=dev)
+    torch.cuda.synchronize()
+    log(f"iir: input {IIR_CHANNELS} x {IIR_T} float32 made and copied in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def run():
+        return biquad_cascade_block(x, cm)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = run()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if tuple(y.shape) != (IIR_CHANNELS, IIR_T) or y.dtype != torch.float32 or not bool(
+            torch.isfinite(y).all()):
+        raise AssertionError(f"iir: bad output {tuple(y.shape)} {y.dtype}")
+    y_gate = y[:IIR_GATE_CHANNELS].double().cpu().numpy()
+    del y
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med, best = statistics.median(times), min(times)
+    samples = IIR_CHANNELS * IIR_STAGES * IIR_T
+    nbytes = 2 * IIR_CHANNELS * IIR_T * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = samples * IIR_OPS_PER_SAMPLE_STAGE / PEAK_FLOPS["float32"] * 1e3
+    log(f"iir cascade {IIR_CHANNELS} ch x {IIR_STAGES} stages x {IIR_T} samples float32: first run "
+        f"{first_ms:.1f} ms, median {med:.1f} ms of {[round(t, 1) for t in times]} ms, min {best:.1f} ms")
+    log(f"iir_biquad_cascade_msamples_per_s: {samples / (med / 1e3) / 1e6:.1f} (median), "
+        f"{samples / (best / 1e3) / 1e6:.1f} (min, as bench.py counts); peak memory {peak:.2f} GiB")
+    log(f"iir bound: bytes {nbytes / 1e9:.3f} GB -> {t_bytes:.3f} ms, operations "
+        f"{samples * IIR_OPS_PER_SAMPLE_STAGE / 1e9:.2f} G -> {t_ops:.3f} ms; bound "
+        f"{max(t_bytes, t_ops):.3f} ms by {'bytes' if t_bytes >= t_ops else 'operations'}; "
+        f"median at {med / max(t_bytes, t_ops):.0f}x the bound; card {gpu_line()}")
+
+    x_gate = x_host[:IIR_GATE_CHANNELS].astype(np.float64)
+    want = x_gate
+    for _, bq in peq:
+        want = sps.lfilter([bq.b0, bq.b1, bq.b2], [1.0, bq.a1, bq.a2], want, axis=-1)
+    scale = np.abs(want).max()
+    x64 = torch.from_numpy(x_gate).to(dev)
+    y64 = biquad_cascade_block(x64, peq_coeff_matrix(peq, torch.float64, device=dev))
+    half = IIR_T // 2
+    first, second = x64[:, :half], x64[:, half:]
+    for _, bq in peq:
+        coeffs = (bq.b0, bq.b1, bq.b2, bq.a1, bq.a2)
+        first, state = biquad_process_block(first, coeffs)
+        second, _ = biquad_process_block(second, coeffs, state)
+    checks = (("float32 on the card vs scipy lfilter (float64, host)", y_gate, want, 1e-3),
+              ("float64 on the card vs scipy lfilter", y64.cpu().numpy(), want, 1e-9),
+              ("float64 two half-blocks with carried state vs the whole block",
+               torch.cat([first, second], 1).cpu().numpy(), y64.cpu().numpy(), 1e-12))
+    for what, got, ref, tol in checks:
+        err = float(np.abs(got - ref).max() / scale)
+        log(f"iir {IIR_GATE_CHANNELS} channels, {what}: max err {err:.3e} of max|y| (limit {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"iir: {what} off by {err:.3e} of max|y|")
+    return run
+
+
+def _peq_rows(rows):
+    from mathaudio_tpu_torch.convert import peq_from_numpy
+
+    return peq_from_numpy([(1.0, name, f, 48000.0, q, g) for name, f, q, g in rows])
+
+
+def autoeq_phase(dev):
+    """Phase 12: the auto-EQ path on the card. (a) fit_peq on the reference
+    test's target (rms <= 0.35 dB, fitted response within 1 dB); (b) the
+    autoeq CLI through main(argv) on a CSV made from a known 7-filter PEQ,
+    with its defaults (-n 7 --maxiter 600): exit 0, the APO file parses
+    back to 7 filters; (c) a second (a) from the same seed gives the same
+    population. Returns a callable for the profiler."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.apps import autoeq
+    from mathaudio_tpu_torch.dsp import peq_spl
+    from mathaudio_tpu_torch.optim import fit_peq
+
+    freqs = np.logspace(np.log10(20.0), np.log10(20000.0), 96)
+    target = peq_spl(freqs, _peq_rows(AUTOEQ_TRUTH), device=dev).cpu().numpy()
+
+    def fit(maxiter=500):
+        return fit_peq(freqs, target, n_filters=3, maxiter=maxiter, seed=4, device=dev)
+
+    def timed(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    res, secs = timed(fit)
+    rep = res.report
+    fitted = res.response_db(freqs, device=dev).cpu().numpy()
+    dev_db = float(np.abs(fitted - target).max())
+    log(f"autoeq (a) fit_peq 3 filters, 96 points, npop {len(rep.population)}: {rep.nit} generations, "
+        f"nfev {rep.nfev}, {secs:.2f} s, {secs * 1e3 / rep.nit:.2f} ms per generation; rms "
+        f"{res.rms_error_db:.4f} dB (limit 0.35), max |fitted - target| {dev_db:.4f} dB (limit 1)")
+    if not (res.rms_error_db <= 0.35 and dev_db <= 1.0):
+        raise AssertionError("autoeq (a): the fit missed the reference test's limits")
+
+    again, secs2 = timed(fit)
+    same = np.array_equal(again.report.population, rep.population)
+    log(f"autoeq (c) second fit from seed 4: {secs2:.2f} s, same population {same}")
+    if not same:
+        raise AssertionError("autoeq (c): the same seed gave another population on the card")
+
+    cli_freqs = np.logspace(np.log10(20.0), np.log10(20000.0), 200)
+    spl = 85.0 + peq_spl(cli_freqs, _peq_rows(AUTOEQ_CLI_TRUTH), device=dev).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        meas, apo = os.path.join(tmp, "speaker.csv"), os.path.join(tmp, "eq.txt")
+        np.savetxt(meas, np.column_stack([cli_freqs, spl]), delimiter=",")
+        argv = [meas, "--apo", apo, "--rme", os.path.join(tmp, "eq.xml"),
+                "--aupreset", os.path.join(tmp, "eq.aupreset"), "--device", str(dev)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            rc, cli_secs = timed(lambda: autoeq.main(argv))
+        with open(apo) as fh:
+            apo_lines = fh.read().splitlines()
+    result = json.loads(out.getvalue())
+    filters = [ln for ln in apo_lines
+               if re.match(r"Filter +\d+: ON (PK|LS|HS) Fc +\d+ Hz Gain [+-]\d+\.\d\d dB Q "
+                           r"\d+\.\d\d$", ln)]
+    log(f"autoeq (b) CLI -n 7 --maxiter 600 on {len(cli_freqs)} points: exit {rc}, {cli_secs:.2f} s, "
+        f"rms {result['rms_error_db']:.4f} dB, APO {len(filters)} filters, {apo_lines[1]}")
+    if rc != 0 or len(filters) != 7 or len(result["filters"]) != 7:
+        raise AssertionError(f"autoeq (b): exit {rc}, {len(filters)} APO filters")
+    return lambda: fit(maxiter=100)
+
+
 def main() -> int:
     import argparse
 
@@ -1438,11 +1648,17 @@ def main() -> int:
     # 5-10. paths 2 and 3, the dense BEM sweep and the single-frequency engines
     bem_records, bem_runs = bem_path(dev, (dia, bem_assembly))
 
+    # 11-12. slice 3: the biquad cascade at bench.py's shape, then the auto-EQ path
+    iir_run = iir_phase(dev)
+    fit_run = autoeq_phase(dev)
+
     # profiles last, once every kernel has run
     if profile:
         profile_run("fem", lambda: sweep(params, ks), "dia_stencil")
         for label, run in bem_runs.items():
             profile_run(label, run, "bem_pairwise")
+        profile_run("iir cascade", iir_run, None)
+        profile_run("autoeq fit (maxiter 100)", fit_run, None)
 
     kernels_line = {"kernels": dia_line + [
         dict(name=name, route="cuda", source=BEM_SOURCE, replaces=replaces, library_ms=None,

@@ -15,7 +15,8 @@ For the single-frequency BEM engines the state is smaller: a surface mesh
 ``bem_solution_from_numpy`` and ``room_bem_solution_from_numpy`` build
 the port's objects from those arrays, so both packages can be fed the
 same data and the port can evaluate the field from the reference's
-surface solution.
+surface solution. ``peq_from_numpy`` carries a parametric EQ across as
+plain rows.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from mathaudio_tpu_torch.bem.room_acoustics import RoomBemSolution
 from mathaudio_tpu_torch.bem.solver import BemProblem, BemSolution
 from mathaudio_tpu_torch.bem.sweep import SweepStatics
 from mathaudio_tpu_torch.bem.types import BoundaryCondition
+from mathaudio_tpu_torch.dsp.iir import Biquad, BiquadFilterType, Peq
 from mathaudio_tpu_torch.fem.dia import DiaTables, dia_pattern
 from mathaudio_tpu_torch.fem.multigrid import MgBuilder, MgBuilderLevel
 from mathaudio_tpu_torch.fem.multigrid_batched import DiaLevel
@@ -144,3 +146,16 @@ def room_bem_solution_from_numpy(mesh: SurfaceMesh, k: float, frequency: float,
                      device=device),
         list(sources), dict(info or {}),
     )
+
+
+def peq_from_numpy(rows) -> Peq:
+    """Port a ``Peq`` from rows of (weight, filter type name, freq, srate,
+    q, db_gain), the type named by its member name ("PEAK") or short name
+    ("PK"); e.g. ``[(w, bq.filter_type.name, bq.freq, bq.srate, bq.q,
+    bq.db_gain) for w, bq in peq]`` of the reference's ``Peq``."""
+    peq: Peq = []
+    for weight, name, freq, srate, q, db_gain in rows:
+        ft = BiquadFilterType[name] if name in BiquadFilterType.__members__ else (
+            BiquadFilterType(name))
+        peq.append((float(weight), Biquad(ft, float(freq), float(srate), float(q), float(db_gain))))
+    return peq

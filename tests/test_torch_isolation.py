@@ -34,7 +34,11 @@ def test_port_files_found():
     assert "mathaudio_tpu_torch/ops/bem_assembly.py" in names
     assert "mathaudio_tpu_torch/bem/sweep.py" in names
     for module in ("bem/types.py", "bem/solver.py", "bem/postprocess.py", "bem/room_acoustics.py",
-                   "solvers/preconditioners/basic.py", "common/types.py", "common/source.py"):
+                   "solvers/preconditioners/basic.py", "common/types.py", "common/source.py",
+                   "dsp/__init__.py", "dsp/iir.py", "dsp/scan.py", "dsp/fir.py", "dsp/denormals.py",
+                   "dsp/formats.py", "dsp/response.py", "optim/__init__.py", "optim/de.py",
+                   "optim/recorder.py", "optim/peq_fit.py", "apps/__init__.py", "apps/autoeq.py",
+                   "convert.py"):
         assert f"mathaudio_tpu_torch/{module}" in names
 
 
@@ -49,7 +53,9 @@ def test_import_leaves_jax_unloaded():
         "import sys, mathaudio_tpu_torch, mathaudio_tpu_torch.convert, "
         "mathaudio_tpu_torch.models.room_sweep_nm, mathaudio_tpu_torch.bem.sweep, "
         "mathaudio_tpu_torch.bem, mathaudio_tpu_torch.bem.room_acoustics, "
-        "mathaudio_tpu_torch.solvers.preconditioners.basic, mathaudio_tpu_torch.common.source; "
+        "mathaudio_tpu_torch.solvers.preconditioners.basic, mathaudio_tpu_torch.common.source, "
+        "mathaudio_tpu_torch.dsp, mathaudio_tpu_torch.dsp.response, mathaudio_tpu_torch.optim, "
+        "mathaudio_tpu_torch.optim.peq_fit, mathaudio_tpu_torch.apps.autoeq; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -58,7 +64,7 @@ def test_import_leaves_jax_unloaded():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_refuse_to_drift_to_cpu():
+def test_entry_points_refuse_to_drift_to_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU; the default device is valid here")
     from mathaudio_tpu_torch.fem.multigrid import GeometricMultigrid, box_hierarchy
@@ -88,3 +94,22 @@ def test_entry_points_refuse_to_drift_to_cpu():
         solve_room_bem(rigid.mesh, 50.0, [Source.omnidirectional(Point3D(0.0, 0.0, 0.0))])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_field(rigid.mesh, np.ones(n, complex), np.array([[0.0, 0.0, 2.0]]), 1.0)
+
+    from mathaudio_tpu_torch.apps import autoeq
+    from mathaudio_tpu_torch.dsp import Biquad, BiquadFilterType, peq_format_apo, peq_spl
+    from mathaudio_tpu_torch.dsp.response import peq_response_db
+    from mathaudio_tpu_torch.optim import differential_evolution, fit_peq
+
+    peq = [(1.0, Biquad(BiquadFilterType.PEAK, 1000.0, 48000.0, 1.0, 3.0))]
+    freqs = np.array([100.0, 1000.0])
+    for call in (lambda: peq_spl(freqs, peq), lambda: peq[0][1].process_block(np.ones(4)),
+                 lambda: peq_format_apo("# eq", peq),
+                 lambda: peq_response_db(["PK"], [[3.0, 1.0, 2.0]], freqs),
+                 lambda: differential_evolution(lambda x: (x * x).sum(), [(-1.0, 1.0)]),
+                 lambda: fit_peq(freqs, np.zeros(2), n_filters=1, maxiter=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    meas = tmp_path / "speaker.csv"
+    np.savetxt(meas, np.column_stack([np.geomspace(20.0, 20000.0, 8), np.zeros(8)]), delimiter=",")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autoeq.main([str(meas), "--maxiter", "1"])

@@ -307,3 +307,93 @@ def test_force_pallas_needs_the_card(bem_inputs, name):
         _call(name, "pallas", torch.tensor([1.4]), *tensors, module=ops)
     with pytest.raises(ValueError, match="unknown force"):
         _call(name, "triton", torch.tensor([1.4]), *tensors, module=ops)
+
+
+# --------------------------------------------------------------------------
+# Slice 3 and the auto-EQ path: the only extras are keyword-only ``device``
+# and ``generator``, wherever they sit (before a ``**kwargs``, too).
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.apps.autoeq as jax_autoeq  # noqa: E402
+import mathaudio_tpu.dsp.denormals as jax_denormals  # noqa: E402
+import mathaudio_tpu.dsp.fir as jax_fir  # noqa: E402
+import mathaudio_tpu.dsp.formats as jax_formats  # noqa: E402
+import mathaudio_tpu.dsp.iir as jax_iir  # noqa: E402
+import mathaudio_tpu.dsp.jax_response as jax_response  # noqa: E402
+import mathaudio_tpu.dsp.scan as jax_scan  # noqa: E402
+import mathaudio_tpu.optim.de as jax_de  # noqa: E402
+import mathaudio_tpu.optim.peq_fit as jax_peq_fit  # noqa: E402
+import mathaudio_tpu.optim.recorder as jax_recorder  # noqa: E402
+import mathaudio_tpu_torch.apps.autoeq as autoeq  # noqa: E402
+import mathaudio_tpu_torch.dsp.denormals as denormals  # noqa: E402
+import mathaudio_tpu_torch.dsp.fir as fir  # noqa: E402
+import mathaudio_tpu_torch.dsp.formats as formats  # noqa: E402
+import mathaudio_tpu_torch.dsp.iir as iir  # noqa: E402
+import mathaudio_tpu_torch.dsp.response as response  # noqa: E402
+import mathaudio_tpu_torch.dsp.scan as scan  # noqa: E402
+import mathaudio_tpu_torch.optim.de as de  # noqa: E402
+import mathaudio_tpu_torch.optim.peq_fit as peq_fit  # noqa: E402
+import mathaudio_tpu_torch.optim.recorder as recorder  # noqa: E402
+
+SLICE3_MODULES = {
+    "dsp.iir": (iir, jax_iir),
+    "dsp.scan": (scan, jax_scan),
+    "dsp.fir": (fir, jax_fir),
+    "dsp.formats": (formats, jax_formats),
+    "dsp.denormals": (denormals, jax_denormals),
+    "dsp.response": (response, jax_response),  # the reference's dsp/jax_response.py
+    "optim.de": (de, jax_de),
+    "optim.recorder": (recorder, jax_recorder),
+    "optim.peq_fit": (peq_fit, jax_peq_fit),
+    "apps.autoeq": (autoeq, jax_autoeq),
+}
+
+
+def _public_callables(ref_module):
+    """Every public function and class of the reference module, and every
+    public method and classmethod of its classes, by qualified name."""
+    names = []
+    for name, obj in vars(ref_module).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != ref_module.__name__:
+            continue
+        if inspect.isfunction(obj):
+            names.append(name)
+        elif inspect.isclass(obj):
+            names.append(name)
+            for attr, member in vars(obj).items():
+                if attr.startswith("_") or not (inspect.isfunction(member)
+                                                or isinstance(member, classmethod)):
+                    continue
+                names.append(f"{name}.{attr}")
+    return sorted(names)
+
+
+SLICE3_FUNCTIONS = [(where, q) for where, (_, ref) in SLICE3_MODULES.items()
+                    for q in _public_callables(ref)]
+
+
+def test_slice3_covers_every_public_callable():
+    assert len(SLICE3_FUNCTIONS) >= 80
+    for where, qualname in (("optim.de", "differential_evolution"), ("optim.peq_fit", "fit_peq"),
+                            ("dsp.iir", "Biquad.np_log_result"), ("dsp.fir", "FirBank.preamp_gain"),
+                            ("optim.recorder", "EvaluationRecorder.record"),
+                            ("apps.autoeq", "main"), ("dsp.response", "peq_response_db")):
+        assert (where, qualname) in SLICE3_FUNCTIONS
+
+
+@pytest.mark.parametrize("where,qualname", SLICE3_FUNCTIONS, ids=[f"{w}:{q}" for w, q in SLICE3_FUNCTIONS])
+def test_slice3_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE3_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    extras = [p for p in port if p.name in ("device", "generator") and p.name not in
+              {r.name for r in ref}]
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None for p in extras), extras
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        if isinstance(p.default, torch.dtype):  # a torch dtype for the reference's jnp one
+            assert p.default == getattr(torch, np.dtype(r.default).name), (p.name, r.default)
+        else:
+            assert _same_default(p.default, r.default), (p.name, p.default, r.default)
