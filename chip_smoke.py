@@ -32,6 +32,15 @@ Path 4 is slice 3's biquad cascade at bench.py ``run_iir``'s shape, and
 path 5 the auto-EQ path (differential evolution fitting a parametric EQ,
 then the autoeq CLI and its exporters), both on the card (phases 11-12).
 
+Path 6 is the BEM room simulator CLI (apps/roomsim_bem.py) on the card:
+(a) configs/small_room.json as users run it (auto tier: 896 elements, LU,
+6 frequencies, 2 listening positions); (b) configs/nearfield_stereo.json
+at its own mesh resolution (10440 elements, 2 sources, rigid walls) with
+the reference's ``--solver gmres``, at 8 log-spaced frequencies over its
+own 40-500 Hz in place of its 100 (the one reduction). Path 7 is the BEM
+QA suite (apps/qa_suite_bem.py): ``--fast``, then the 19 cases of its full
+list that use no FMM (phases 13-14).
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -108,7 +117,25 @@ Phases, each fatal on failure:
    from the same seed gives the same population; generations, nfev, ms per
    generation and seconds printed. Paths 4 and 5 launch no hand-written
    kernel (slice 3 has no TPU kernel), so they add nothing to the kernels
-   line.
+   line;
+13. path 6, each run with the counts set to 0 just before and read just
+   after (``mixed`` and ``kh`` must have launched): (a) main(argv) with the
+   auto tier writes a JSON that parses back to 6 results, finite SPL, every
+   frequency converged, within 0.01 dB of the same run on the CPU in
+   float64; (b) run_bem_simulation(solver="gmres"): each frequency's true
+   residual ||A p - b||/||b|| <= 1e-4 where GMRES called it converged
+   (printed with its iterations either way), SPL at 40 and 500 Hz within
+   0.05 dB of solver="direct" (LU on the card); the solve at those two
+   split into mesh tensors, assembly, linear solve and field; ``mixed`` and
+   ``kh`` held against their twins at both paths' shapes (10440 x 10440 on
+   its first 256 rows) and timed;
+14. path 7: main(["--fast", "-o", tmp]) exits 0; the 19 non-FMM cases
+   through the case functions at the reference's ka and subdivisions, each
+   rel_l2 within 2% (relative) + 1e-4 of qa_bem_results/summary.json; the
+   closed forms written out below agree with the port's pulsating-sphere
+   oracle and the cavity case's to 1e-12 in float64; the variants the
+   cases launch held against their twins at 320 and 1280 elements.
+   Phases 13-14 add their shapes to the kernels line's ``other_shapes``.
 With ``--profile``, once every phase has passed, one more run of each
 path (for path 5 a fit at maxiter 100) runs under torch.profiler and its
 device time is printed by kernel group and kernel, with the device's idle
@@ -124,12 +151,14 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the
 # non-tensor-core rates of the kernel's arithmetic type.
@@ -642,28 +671,43 @@ def far_field_check(label, ops, twin, variant, x, nx, st, ks):
     torch.cuda.empty_cache()
 
 
-def bem_kernel_record(label, ops, twin, variant, a, off_diagonal):
+def bem_kernel_record(label, ops, twin, variant, a, off_diagonal, twin_rows=None,
+                      graph_calls=10):
     """``variant`` on inputs ``a`` (float32) held against its twin, timed
-    from Python and replayed from a CUDA graph, the twin timed, and the
-    bound: one record of the kernels line."""
+    from Python and replayed from a CUDA graph (``graph_calls`` calls per
+    replay), the twin timed, and the bound: one record of the kernels line.
+    With ``twin_rows`` the kernel runs at the whole shape and its first
+    ``twin_rows`` rows are held against the twin run on those rows alone,
+    where the twin's (rows, N, nq) temporaries at the whole shape would
+    not fit; the twin is timed on those rows (``plain_rows``)."""
     import torch
 
-    x, _, yq, _, _, ks = a
+    x, nx, yq, ny, w, ks = a
+    block = a if twin_rows is None else (x[:twin_rows], None if nx is None else nx[:twin_rows],
+                                         yq, ny, w, ks)
     got = ops.bem_pairwise(variant, *a)
-    ref = twin(variant, *a)
+    if twin_rows is not None:
+        got = tuple(None if g is None else g[..., :twin_rows, :] for g in got)
+    ref = twin(variant, *block)
     torch.cuda.synchronize()
     max_abs = compare_planes(label, variant, got, ref, 1e-5, off_diagonal)
     del got, ref
+    torch.cuda.empty_cache()
     ms = time_ms(lambda: ops.bem_pairwise(variant, *a))
-    on_card = graph_ms(lambda: ops.bem_pairwise(variant, *a))
-    plain_ms = time_ms(lambda: twin(variant, *a), batches=3, per_batch=1)
+    on_card = graph_ms(lambda: ops.bem_pairwise(variant, *a), per_batch=graph_calls)
+    plain_ms = time_ms(lambda: twin(variant, *block), batches=3, per_batch=1)
     ni, (nj, nq, _), nf = x.shape[0], yq.shape, ks.shape[0]
     b_ms, b_by = bem_bound(variant, ni, nj, nq, nf, torch.float32)
-    log(f"  {variant} {ni} x {nj} F={nf}: kernel {ms:.4f} ms, in a graph {on_card:.4f} ms, twin "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / on_card:.1f}% of bound")
+    rows = "" if twin_rows is None else f" (on its first {twin_rows} rows)"
+    log(f"  {variant} {ni} x {nj} F={nf}: kernel {ms:.4f} ms, in a graph {on_card:.4f} ms, twin"
+        f"{rows} {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / on_card:.1f}% of "
+        f"bound")
     torch.cuda.empty_cache()
-    return dict(shape=f"{ni}x{nj}", nf=nf, max_abs_err=max_abs, ms=ms, graph_ms=on_card,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, launches=0)
+    record = dict(shape=f"{ni}x{nj}", nf=nf, max_abs_err=max_abs, ms=ms, graph_ms=on_card,
+                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, launches=0)
+    if twin_rows is not None:
+        record["plain_rows"] = twin_rows
+    return record
 
 
 def bem_kernel_phase(ops, statics, statics64, dev):
@@ -1092,7 +1136,7 @@ def gmres_config(burton_miller):
                            tolerance=PATH3_GMRES_TOL)
 
 
-def counted(label, counters, run, dev):
+def counted(label, counters, run, dev, path="path 3"):
     """``run()`` once with every launch count set to 0 just before and read
     just after; returns (result, launches)."""
     import torch
@@ -1107,7 +1151,7 @@ def counted(label, counters, run, dev):
     seconds = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    log(f"path 3 {label}: counted run {seconds:.3f} s, peak memory {peak:.2f} GiB, launches {launches}")
+    log(f"{path} {label}: counted run {seconds:.3f} s, peak memory {peak:.2f} GiB, launches {launches}")
     return out, launches
 
 
@@ -1501,6 +1545,316 @@ def autoeq_phase(dev):
     return lambda: fit(maxiter=100)
 
 
+# Phases 13-14: the BEM applications (slice 4b) on the card, with the
+# oracles (slice 7a). Roomsim (a) is configs/small_room.json as users run
+# it (auto tier: N = 896 elements, LU, 6 frequencies, 2 listening
+# positions, absorbing walls); (b) is configs/nearfield_stereo.json at its
+# own mesh_resolution 10 (N = 10440, 2 sources, 1 listening position,
+# rigid walls) through the reference's ``--solver gmres``, at 8 of its 100
+# log-spaced frequencies over its own 40-500 Hz: the one reduction.
+REPO = Path(__file__).resolve().parent
+ROOMSIM_SMALL = REPO / "configs" / "small_room.json"
+ROOMSIM_WIDE = REPO / "configs" / "nearfield_stereo.json"
+ROOMSIM_WIDE_FREQS = 8
+ROOMSIM_CPU_DB, ROOMSIM_LU_DB = 0.01, 0.05  # SPL: the card vs the CPU in float64, GMRES vs LU
+ROOMSIM_RESIDUAL = 1e-4  # ||A p - b|| / ||b|| of a frequency GMRES calls converged
+TWIN_ROWS = 256  # the twin's rows where the whole shape's twin would not fit
+# Phase 14: the QA suite's non-FMM cases at the reference's own ka and
+# subdivisions (apps/qa_suite_bem.py main), by subdivision; each rel_l2
+# within QA_REL of the recorded run's (qa_bem_results/, x64 on the CPU)
+# plus QA_ABS.
+QA_SUMMARY = REPO / "qa_bem_results" / "summary.json"
+QA_REL, QA_ABS = 0.02, 1e-4
+QA_CASES = {
+    2: [("sphere_case", ka, {}) for ka in (0.1, 0.5, 1.0)]
+       + [("sphere_case", 0.5, {"solver": s}) for s in ("lu", "gmres")]
+       + [("pulsating_case", ka, {}) for ka in (0.5, 1.0, 2.0, math.pi)],
+    3: [("sphere_case", ka, {}) for ka in (2.0, math.pi, 5.0)]
+       + [("sphere_case", ka, {"solver": s}) for s in ("lu", "gmres") for ka in (2.0, 5.0)]
+       + [("cavity_case", ka, {}) for ka in (1.0, 2.0)]
+       + [("mixed_pulsating_case", 1.0, {})],
+}
+# The variants the QA cases launch, and the largest ka each launches at.
+QA_VARIANTS = {"burton_miller": 5.0, "mixed": 2.0, "mixed_bm": 2.0}
+
+
+def _quiet(fn, *args, **kw):
+    """``fn`` with its standard output and error swallowed."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def room_kernel_records(ops, dev, mesh, k, points, launches, twin_rows=None, graph_calls=10):
+    """``mixed`` at a room mesh's own pairs and ``kh`` at its listening
+    ``points`` (float32, one wavenumber ``k``), held against their twins
+    (``mixed`` off the diagonal, on its first ``twin_rows`` rows when given),
+    timed and bounded: {variant: record}."""
+    import torch
+
+    from mathaudio_tpu_torch.bem.assembly import _mesh_tensors
+
+    twin = twin_pairwise(ops)
+    centers, normals, qp, qw, _, _ = _mesh_tensors(mesh, 3, torch.float32, dev)
+    ks = torch.tensor([k], dtype=torch.float32, device=dev)
+    x = torch.tensor(points, dtype=torch.float32, device=dev)
+    n = mesh.num_elements
+    out = {
+        "mixed": bem_kernel_record(f"f32 {n} x {n} F=1", ops, twin, "mixed",
+                                   (centers, normals, qp, normals, qw, ks), True,
+                                   twin_rows=twin_rows, graph_calls=graph_calls),
+        "kh": bem_kernel_record(f"f32 {len(points)} x {n} F=1", ops, twin, "kh",
+                                (x, None, qp, normals, qw, ks), False),
+    }
+    for variant, record in out.items():
+        record["launches"] = launches.get(variant, 0)
+    return out
+
+
+def roomsim_phase(ops, dev, counters):
+    """Phase 13: the roomsim CLI on the card. (a) small_room.json through
+    main(argv) with the auto tier: the JSON parses back to 6 results, finite
+    SPL, every frequency converged, SPL within ROOMSIM_CPU_DB of the same
+    run on the CPU in float64. (b) nearfield_stereo.json (N = 10440) through
+    run_bem_simulation with solver="gmres" at 8 frequencies: each
+    frequency's true residual ||A p - b||/||b|| <= ROOMSIM_RESIDUAL where
+    GMRES called it converged (printed with its iterations either way), SPL
+    at 40 and 500 Hz within ROOMSIM_LU_DB of solver="direct" (LU); the solve
+    at 40 and 500 Hz split into mesh tensors, assembly, linear solve and
+    field. Each run's launches are counted; ``mixed`` and ``kh`` are held
+    against their twins at both shapes. Returns ({variant: [records]},
+    callables for the profiler)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.apps import roomsim_bem
+    from mathaudio_tpu_torch.bem import assembly, room_acoustics
+    from mathaudio_tpu_torch.common.config import FrequencySpec, RoomConfig
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
+    from mathaudio_tpu_torch.solvers.preconditioners.basic import jacobi_preconditioner
+    from mathaudio_tpu_torch.xtypes import full_f32_matmul
+
+    # (a) small_room.json as users run it
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "room.json")
+
+        def run_a():
+            return _quiet(roomsim_bem.main, [str(ROOMSIM_SMALL), "-o", out])
+
+        rc, launches_a = counted("(a) small_room.json main", counters, run_a, dev, path="roomsim")
+        need_launches("roomsim (a)", launches_a, ("mixed", "kh"))
+        with open(out) as fh:
+            got = json.load(fh)
+        wall_a = median_ms(run_a)
+    cfg_a = RoomConfig.from_file(str(ROOMSIM_SMALL))
+    spl = np.array([r["spl_db"] for r in got["results"]])
+    conv = [r["converged"] for r in got["results"]]
+    n_a = got["metadata"]["num_elements"]
+    log(f"roomsim (a) {ROOMSIM_SMALL.name}: exit {rc}, N = {n_a}, {len(got['results'])} frequencies, "
+        f"converged {conv}, app wall {wall_a:.1f} ms (median of 3), per-frequency solve "
+        f"{[round(r['solve_time_s'] * 1e3, 2) for r in got['results']]} ms")
+    if rc != 0 or spl.shape != (6, 2) or not np.isfinite(spl).all() or not all(conv):
+        raise AssertionError(f"roomsim (a): exit {rc}, SPL {spl.shape}, converged {conv}")
+    cpu = roomsim_bem.run_bem_simulation(cfg_a, verbose=0, dtype=torch.float64, device="cpu")
+    err = float(np.abs(spl - np.array([r.spl_db for r in cpu.results])).max())
+    log(f"roomsim (a): SPL on the card (float32) vs the CPU (float64) max diff {err:.3e} dB "
+        f"(limit {ROOMSIM_CPU_DB:g})")
+    if not err <= ROOMSIM_CPU_DB:
+        raise AssertionError(f"roomsim (a): SPL off the CPU's by {err:.3e} dB")
+    sim_a = cfg_a.to_simulation()
+    mesh_a = sim_a.geometry.generate_mesh(cfg_a.solver.mesh_resolution).to_surface_mesh()
+    lp_a = np.asarray([p.to_array() for p in sim_a.listening_positions])
+    k_a = 2 * math.pi * float(sim_a.frequencies[-1]) / C_SOUND
+    records = {v: [r] for v, r in room_kernel_records(ops, dev, mesh_a, k_a, lp_a, launches_a).items()}
+
+    # (b) nearfield_stereo.json at full width, GMRES
+    spec = RoomConfig.from_file(str(ROOMSIM_WIDE)).frequencies
+
+    def wide(lo, hi, num):
+        """The wide room with ``num`` of its log-spaced frequencies over [lo, hi]."""
+        c = RoomConfig.from_file(str(ROOMSIM_WIDE))
+        c.frequencies = FrequencySpec(lo, hi, num, spec.spacing)
+        return c
+
+    cfg = wide(spec.min_freq, spec.max_freq, ROOMSIM_WIDE_FREQS)
+    solutions, solve = [], roomsim_bem.solve_room_bem
+
+    def keep(*args, **kw):
+        solutions.append(solve(*args, **kw))
+        return solutions[-1]
+
+    roomsim_bem.solve_room_bem = keep  # the app's own solutions, for the residuals
+    try:
+        res, launches_b = counted(f"(b) {ROOMSIM_WIDE.name} gmres", counters,
+                                  lambda: roomsim_bem.run_bem_simulation(cfg, verbose=0, solver="gmres",
+                                                                         device=dev),
+                                  dev, path="roomsim")
+    finally:
+        roomsim_bem.solve_room_bem = solve
+    need_launches("roomsim (b)", launches_b, ("mixed", "kh"))
+    mesh, n = solutions[0].mesh, solutions[0].mesh.num_elements
+    sim = cfg.to_simulation()
+    lp = np.asarray([p.to_array() for p in sim.listening_positions])
+    log(f"roomsim (b) {ROOMSIM_WIDE.name}: N = {n}, {len(res.results)} of its {spec.num_points} "
+        f"frequencies ({spec.min_freq:g}-{spec.max_freq:g} Hz, log), {len(sim.sources)} sources, "
+        f"{len(lp)} listening position(s), wall admittance {res.metadata['wall_admittance']:g}; app "
+        f"wall {sum(r.solve_time_s for r in res.results):.3f} s in the frequency loop")
+    spl_b = np.array([r.spl_db for r in res.results])
+    if spl_b.shape != (ROOMSIM_WIDE_FREQS, len(lp)) or not np.isfinite(spl_b).all():
+        raise AssertionError(f"roomsim (b): SPL {spl_b.shape} not finite")
+    t = assembly._mesh_tensors(mesh, 3, torch.float32, dev)
+    rb = assembly._resolve_row_block(None, n, t[2].shape[1], t[0], "mixed")
+
+    def system(sol):
+        a = room_acoustics._room_matrix(*t, sol.k, sol.admittance, rb)
+        return a, room_acoustics._source_pressure(t[0], sim.sources, sol.k, sol.frequency)
+
+    for sol, r in zip(solutions, res.results):
+        a, b = system(sol)
+        with full_f32_matmul():
+            rel = float(torch.linalg.vector_norm(a @ sol.surface_pressure - b)
+                        / torch.linalg.vector_norm(b))
+        del a
+        log(f"roomsim (b) f = {sol.frequency:.2f} Hz: converged {r.converged}, GMRES iterations "
+            f"{r.iterations}, residual ||A p - b||/||b|| {rel:.3e}, solve {r.solve_time_s * 1e3:.1f} ms, "
+            f"SPL {[round(v, 3) for v in r.spl_db]} dB")
+        if r.converged and not rel <= ROOMSIM_RESIDUAL:
+            raise AssertionError(f"roomsim (b) {sol.frequency:.2f} Hz: converged with residual {rel:.3e}")
+    torch.cuda.empty_cache()
+
+    lu = roomsim_bem.run_bem_simulation(wide(spec.min_freq, spec.max_freq, 2), verbose=0,
+                                        solver="direct", device=dev)
+    for got_r, want_r in ((res.results[0], lu.results[0]), (res.results[-1], lu.results[-1])):
+        err = float(np.abs(np.array(got_r.spl_db) - np.array(want_r.spl_db)).max())
+        log(f"roomsim (b) {got_r.frequency:.2f} Hz: SPL GMRES vs LU (cuSOLVER) {err:.3e} dB "
+            f"(limit {ROOMSIM_LU_DB:g}), LU solve {want_r.solve_time_s * 1e3:.1f} ms")
+        if not err <= ROOMSIM_LU_DB:
+            raise AssertionError(f"roomsim (b) {got_r.frequency:.2f} Hz: GMRES off LU by {err:.3e} dB")
+    torch.cuda.empty_cache()
+
+    krylov = KrylovConfig(max_iterations=1000, tolerance=1e-8, restart=50)  # solve_room_bem's
+    for sol in (solutions[0], solutions[-1]):
+        a, b = system(sol)
+        info = gmres(a, b, config=krylov, preconditioner=jacobi_preconditioner(torch.diagonal(a)))
+        t_mesh = median_ms(lambda: assembly._mesh_tensors(mesh, 3, torch.float32, dev))
+        t_asm = median_ms(lambda: room_acoustics._room_matrix(*t, sol.k, sol.admittance, rb))
+        t_lin = median_ms(lambda: gmres(a, b, config=krylov,
+                                        preconditioner=jacobi_preconditioner(torch.diagonal(a))))
+        del a
+        torch.cuda.empty_cache()
+        t_field = median_ms(lambda: sol.evaluate_pressure(lp))
+        t_solve = median_ms(lambda: solve(mesh, sol.frequency, sim.sources,
+                                          admittance=sol.admittance[0].item(), method="gmres",
+                                          device=dev))
+        log(f"roomsim (b) {sol.frequency:.2f} Hz steady state (medians of 3): solve {t_solve:.2f} ms = "
+            f"mesh tensors {t_mesh:.2f} ms + assembly {t_asm:.2f} ms + linear solve {t_lin:.2f} ms "
+            f"(GMRES {int(info.iterations)} iterations, converged {bool(info.converged)}) + rest; "
+            f"field {t_field:.3f} ms")
+    k_b = 2 * math.pi * spec.max_freq / C_SOUND
+    for v, r in room_kernel_records(ops, dev, mesh, k_b, lp, launches_b, twin_rows=TWIN_ROWS,
+                                    graph_calls=4).items():
+        records[v].append(r)
+    del solutions
+    torch.cuda.empty_cache()
+
+    one = wide(spec.max_freq, spec.max_freq, 1)
+    runs = {"roomsim (a) small_room": lambda: roomsim_bem.run_bem_simulation(cfg_a, verbose=0,
+                                                                            device=dev),
+            f"roomsim (b) nearfield gmres {spec.max_freq:g} Hz":
+                lambda: roomsim_bem.run_bem_simulation(one, verbose=0, solver="gmres", device=dev)}
+    return records, runs
+
+
+def qa_phase(ops, dev, counters):
+    """Phase 14: the QA suite on the card. main(["--fast", "-o", tmp])
+    exits 0; then the 19 non-FMM cases of its full list through the case
+    functions at the reference's own ka and subdivisions, counted per
+    subdivision (320 and 1280 elements), each rel_l2 within QA_REL of the
+    recorded run's plus QA_ABS; the closed forms written out in this script
+    against the port's oracles in float64 (<= 1e-12). The variants the cases
+    launch are held against their twins at both shapes. Returns ({variant:
+    [records]}, callables for the profiler)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.apps import qa_suite_bem as qa
+    from mathaudio_tpu_torch.bem import sweep
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.wave.analytical.solutions_3d import pulsating_sphere_3d
+
+    with open(QA_SUMMARY) as fh:
+        recorded = {c["name"]: c["rel_l2"] for c in json.load(fh)["cases"]}
+    by_subdiv = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, launches_fast = counted("main --fast", counters, lambda: _quiet(qa.main, ["--fast", "-o", tmp]),
+                                    dev, path="qa")
+        with open(f"{tmp}/summary.json") as fh:
+            fast = json.load(fh)
+        log(f"qa main --fast: exit {rc}, {fast['passed']}/{fast['total']} passed (threshold "
+            f"{fast['threshold']:g}): " + ", ".join(f"{c['name']} {c['rel_l2']:.3e}" for c in fast["cases"]))
+        if rc != 0:
+            raise AssertionError(f"qa main --fast exited {rc}")
+        need_launches("qa --fast", launches_fast, tuple(QA_VARIANTS))
+
+        for subdiv, cases in QA_CASES.items():
+            def run_cases():
+                return [getattr(qa, fn)(ka, subdiv, tmp, 0, device=dev, **kw) for fn, ka, kw in cases]
+
+            results, by_subdiv[subdiv] = counted(f"{len(cases)} cases at subdivision {subdiv}", counters,
+                                                 run_cases, dev, path="qa")
+            for r in results:
+                got, want = r.metrics.l2_relative, recorded[r.name]
+                limit = QA_REL * want + QA_ABS
+                log(f"qa {r.name} (N = {r.metadata.num_dofs}, {r.metadata.solver}): rel_l2 {got:.6e}, "
+                    f"recorded {want:.6e}, diff {abs(got - want):.3e} (limit {limit:.3e}), solve "
+                    f"{r.metadata.wall_time_s * 1e3:.1f} ms")
+                if not abs(got - want) <= limit:
+                    raise AssertionError(f"qa {r.name}: rel_l2 {got:.6e} vs the recorded {want:.6e}")
+                if r.name.startswith("cavity"):
+                    ka = r.parameters["ka"]
+                    want_p = complex(r.analytical.pressure_real[0], r.analytical.pressure_imag[0])
+                    err = abs(cavity_exact(1.0, ka) - want_p) / abs(want_p)
+                    log(f"qa closed form: cavity_exact(1, {ka:g}) vs cavity_case's {err:.3e} (limit 1e-12)")
+                    if not err <= 1e-12:
+                        raise AssertionError("the cavity's closed forms disagree")
+    n_cases = sum(len(c) for c in QA_CASES.values())
+    if n_cases != 19:
+        raise AssertionError(f"{n_cases} QA cases, not the 19 without FMM")
+    for pts, k in ((field_points(), PATH3_KA), (icosphere(1.0, 3).centers, math.pi)):
+        want = pulsating_exact(pts, k)
+        got = pulsating_sphere_3d(k, 1.0, pts, dtype=torch.float64, device=dev).pressure.cpu().numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"qa closed form: pulsating_exact vs pulsating_sphere_3d at {len(pts)} points, ka "
+            f"{k:g}: {err:.3e} (limit 1e-12)")
+        if not err <= 1e-12:
+            raise AssertionError("the pulsating sphere's closed forms disagree")
+
+    records = {v: [] for v in QA_VARIANTS}
+    twin = twin_pairwise(ops)
+    for subdiv in QA_CASES:
+        st = sweep.sweep_statics(icosphere(1.0, subdiv), dtype=torch.float32, device=dev)
+        n = st.centers.shape[0]
+        for v, ka in QA_VARIANTS.items():
+            ks = torch.tensor([ka], dtype=torch.float32, device=dev)
+            r = bem_kernel_record(f"f32 {n} x {n} F=1", ops, twin, v,
+                                  (st.centers, st.normals, st.qp, st.normals, st.qw, ks), True)
+            r["launches"] = by_subdiv[subdiv].get(v, 0) + (launches_fast.get(v, 0) if subdiv == 2 else 0)
+            records[v].append(r)
+
+    def run_fast():
+        with tempfile.TemporaryDirectory() as tmp:
+            return _quiet(qa.main, ["--fast", "-o", tmp])
+
+    return records, {"qa main --fast": run_fast}
+
+
 def main() -> int:
     import argparse
 
@@ -1652,6 +2006,16 @@ def main() -> int:
     iir_run = iir_phase(dev)
     fit_run = autoeq_phase(dev)
 
+    # 13-14. slice 4b: the BEM applications on the card, with the oracles
+    app_runs = {}
+    for phase in (roomsim_phase, qa_phase):
+        new_records, runs = phase(bem_assembly, dev, (dia, bem_assembly))
+        app_runs.update(runs)
+        for variant, recs in new_records.items():
+            for r in recs:
+                bem_records[variant].setdefault("other_shapes", []).append(r)
+                bem_records[variant]["launches"] += r["launches"]
+
     # profiles last, once every kernel has run
     if profile:
         profile_run("fem", lambda: sweep(params, ks), "dia_stencil")
@@ -1659,6 +2023,8 @@ def main() -> int:
             profile_run(label, run, "bem_pairwise")
         profile_run("iir cascade", iir_run, None)
         profile_run("autoeq fit (maxiter 100)", fit_run, None)
+        for label, run in app_runs.items():
+            profile_run(label, run, "bem_pairwise")
 
     kernels_line = {"kernels": dia_line + [
         dict(name=name, route="cuda", source=BEM_SOURCE, replaces=replaces, library_ms=None,

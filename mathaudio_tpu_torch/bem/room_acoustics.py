@@ -117,11 +117,10 @@ def solve_room_bem(mesh: SurfaceMesh, frequency: float, sources: Sequence[Source
                    device=None) -> RoomBemSolution:
     """Solve one frequency of the interior room problem on ``device``
     (default ``cuda``; raises without a GPU). ``admittance`` is the
-    normalized wall admittance beta (scalar or per-element); ``method`` is
-    "lu" or "gmres" (Jacobi-preconditioned, ``gmres_config`` or 1000
-    iterations, tolerance 1e-8, restart 50)."""
-    if method not in ("lu", "gmres"):
-        raise ValueError(f"unknown room BEM method {method!r}: 'lu' or 'gmres'")
+    normalized wall admittance beta (scalar or per-element); ``method``
+    "lu" runs the dense LU and any other value, as in the reference,
+    Jacobi-preconditioned GMRES (``gmres_config`` or 1000 iterations,
+    tolerance 1e-8, restart 50)."""
     dtype = dtype or default_float()
     device = resolve_device(device)
     k = 2.0 * math.pi * frequency / speed_of_sound

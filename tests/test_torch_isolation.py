@@ -38,7 +38,14 @@ def test_port_files_found():
                    "dsp/__init__.py", "dsp/iir.py", "dsp/scan.py", "dsp/fir.py", "dsp/denormals.py",
                    "dsp/formats.py", "dsp/response.py", "optim/__init__.py", "optim/de.py",
                    "optim/recorder.py", "optim/peq_fit.py", "apps/__init__.py", "apps/autoeq.py",
-                   "convert.py"):
+                   "convert.py", "xtypes.py", "wave/__init__.py", "wave/special/__init__.py",
+                   "wave/special/bessel.py", "wave/special/spherical.py", "wave/special/legendre.py",
+                   "wave/special/helmholtz.py", "wave/analytical/__init__.py",
+                   "wave/analytical/solution.py", "wave/analytical/solutions_1d.py",
+                   "wave/analytical/solutions_2d.py", "wave/analytical/solutions_3d.py",
+                   "common/__init__.py", "common/geometry.py", "common/config.py",
+                   "common/output.py", "utils/__init__.py", "utils/profiling.py", "bem/testing.py",
+                   "apps/roomsim_bem.py", "apps/qa_suite_bem.py"):
         assert f"mathaudio_tpu_torch/{module}" in names
 
 
@@ -55,7 +62,10 @@ def test_import_leaves_jax_unloaded():
         "mathaudio_tpu_torch.bem, mathaudio_tpu_torch.bem.room_acoustics, "
         "mathaudio_tpu_torch.solvers.preconditioners.basic, mathaudio_tpu_torch.common.source, "
         "mathaudio_tpu_torch.dsp, mathaudio_tpu_torch.dsp.response, mathaudio_tpu_torch.optim, "
-        "mathaudio_tpu_torch.optim.peq_fit, mathaudio_tpu_torch.apps.autoeq; "
+        "mathaudio_tpu_torch.optim.peq_fit, mathaudio_tpu_torch.apps.autoeq, "
+        "mathaudio_tpu_torch.wave, mathaudio_tpu_torch.common, mathaudio_tpu_torch.utils, "
+        "mathaudio_tpu_torch.bem.testing, mathaudio_tpu_torch.apps.roomsim_bem, "
+        "mathaudio_tpu_torch.apps.qa_suite_bem; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -107,6 +117,19 @@ def test_entry_points_refuse_to_drift_to_cpu(tmp_path):
                  lambda: peq_response_db(["PK"], [[3.0, 1.0, 2.0]], freqs),
                  lambda: differential_evolution(lambda x: (x * x).sum(), [(-1.0, 1.0)]),
                  lambda: fit_peq(freqs, np.zeros(2), n_filters=1, maxiter=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    from mathaudio_tpu_torch.apps.qa_suite_bem import sphere_case
+    from mathaudio_tpu_torch.apps.roomsim_bem import run_bem_simulation
+    from mathaudio_tpu_torch.common.output import create_default_config
+    from mathaudio_tpu_torch.wave.analytical import sphere_scattering_3d
+    from mathaudio_tpu_torch.wave.special import spherical_jn_all
+    from mathaudio_tpu_torch.xtypes import log_space
+
+    for call in (lambda: run_bem_simulation(create_default_config(), verbose=0),
+                 lambda: sphere_case(1.0, 0, str(tmp_path), 0),
+                 lambda: sphere_scattering_3d(1.0, 1.0, 10, [1.0], [0.0, 1.0]),
+                 lambda: spherical_jn_all(3, [0.5]), lambda: log_space(20.0, 200.0, 4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     meas = tmp_path / "speaker.csv"

@@ -397,3 +397,115 @@ def test_slice3_signature_is_the_reference(where, qualname):
             assert p.default == getattr(torch, np.dtype(r.default).name), (p.name, r.default)
         else:
             assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+
+
+# --------------------------------------------------------------------------
+# Slices 7a and 4b: the oracles, the room config/geometry/output layer and
+# the two BEM applications. The only extras are keyword-only ``dtype`` and
+# ``device``, each defaulting to None (float32 and the GPU).
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.apps.qa_suite_bem as jax_qa_suite_bem  # noqa: E402
+import mathaudio_tpu.apps.roomsim_bem as jax_roomsim_bem  # noqa: E402
+import mathaudio_tpu.bem.testing as jax_bem_testing  # noqa: E402
+import mathaudio_tpu.common.config as jax_common_config  # noqa: E402
+import mathaudio_tpu.common.geometry as jax_geometry  # noqa: E402
+import mathaudio_tpu.common.output as jax_output  # noqa: E402
+import mathaudio_tpu.common.types as jax_common_types  # noqa: E402
+import mathaudio_tpu.utils.profiling as jax_profiling  # noqa: E402
+import mathaudio_tpu.wave.analytical.solution as jax_solution  # noqa: E402
+import mathaudio_tpu.wave.analytical.solutions_1d as jax_solutions_1d  # noqa: E402
+import mathaudio_tpu.wave.analytical.solutions_2d as jax_solutions_2d  # noqa: E402
+import mathaudio_tpu.wave.analytical.solutions_3d as jax_solutions_3d  # noqa: E402
+import mathaudio_tpu.wave.special.bessel as jax_bessel  # noqa: E402
+import mathaudio_tpu.wave.special.helmholtz as jax_helmholtz  # noqa: E402
+import mathaudio_tpu.wave.special.legendre as jax_legendre  # noqa: E402
+import mathaudio_tpu.wave.special.spherical as jax_spherical  # noqa: E402
+import mathaudio_tpu.xtypes as jax_xtypes  # noqa: E402
+import mathaudio_tpu_torch.apps.qa_suite_bem as qa_suite_bem  # noqa: E402
+import mathaudio_tpu_torch.apps.roomsim_bem as roomsim_bem  # noqa: E402
+import mathaudio_tpu_torch.bem.testing as bem_testing  # noqa: E402
+import mathaudio_tpu_torch.common.config as common_config  # noqa: E402
+import mathaudio_tpu_torch.common.geometry as geometry  # noqa: E402
+import mathaudio_tpu_torch.common.output as output  # noqa: E402
+import mathaudio_tpu_torch.common.types as common_types  # noqa: E402
+import mathaudio_tpu_torch.utils.profiling as profiling  # noqa: E402
+import mathaudio_tpu_torch.wave.analytical.solution as solution  # noqa: E402
+import mathaudio_tpu_torch.wave.analytical.solutions_1d as solutions_1d  # noqa: E402
+import mathaudio_tpu_torch.wave.analytical.solutions_2d as solutions_2d  # noqa: E402
+import mathaudio_tpu_torch.wave.analytical.solutions_3d as solutions_3d  # noqa: E402
+import mathaudio_tpu_torch.wave.special.bessel as bessel  # noqa: E402
+import mathaudio_tpu_torch.wave.special.helmholtz as helmholtz  # noqa: E402
+import mathaudio_tpu_torch.wave.special.legendre as legendre  # noqa: E402
+import mathaudio_tpu_torch.wave.special.spherical as spherical  # noqa: E402
+import mathaudio_tpu_torch.xtypes as port_xtypes  # noqa: E402
+
+SLICE_7A_4B_MODULES = {
+    "wave.special.bessel": (bessel, jax_bessel),
+    "wave.special.spherical": (spherical, jax_spherical),
+    "wave.special.legendre": (legendre, jax_legendre),
+    "wave.special.helmholtz": (helmholtz, jax_helmholtz),
+    "wave.analytical.solution": (solution, jax_solution),
+    "wave.analytical.solutions_1d": (solutions_1d, jax_solutions_1d),
+    "wave.analytical.solutions_2d": (solutions_2d, jax_solutions_2d),
+    "wave.analytical.solutions_3d": (solutions_3d, jax_solutions_3d),
+    "common.types": (common_types, jax_common_types),
+    "common.geometry": (geometry, jax_geometry),
+    "common.config": (common_config, jax_common_config),
+    "common.output": (output, jax_output),
+    "utils.profiling": (profiling, jax_profiling),
+    "bem.testing": (bem_testing, jax_bem_testing),
+    "apps.roomsim_bem": (roomsim_bem, jax_roomsim_bem),
+    "apps.qa_suite_bem": (qa_suite_bem, jax_qa_suite_bem),
+    "xtypes": (port_xtypes, jax_xtypes),
+}
+# the reference's xtypes.x64_enabled reads JAX's global x64 flag, which the
+# port does not have: its functions take ``dtype`` instead
+XTYPES_PORTED = ("default_float", "default_complex", "complex_dtype_for", "real_dtype_for",
+                 "is_complex", "wavenumber", "pressure_to_spl", "log_space", "lin_space")
+SLICE_7A_4B_FUNCTIONS = [(where, q) for where, (_, ref) in SLICE_7A_4B_MODULES.items()
+                         for q in (XTYPES_PORTED if where == "xtypes" else _public_callables(ref))]
+
+
+def test_slices_7a_4b_cover_every_public_callable():
+    assert len(SLICE_7A_4B_FUNCTIONS) >= 130
+    for where, qualname in (("wave.analytical.solutions_3d", "sphere_scattering_3d"),
+                            ("wave.special.bessel", "bessel_jn_yn_all"),
+                            ("common.types", "RoomMesh.to_surface_mesh"),
+                            ("common.config", "RoomConfig.to_simulation"),
+                            ("common.geometry", "LShapedRoom.generate_adaptive_mesh"),
+                            ("bem.testing", "ValidationResult.create"),
+                            ("apps.roomsim_bem", "run_bem_simulation"),
+                            ("apps.qa_suite_bem", "sphere_case"), ("apps.qa_suite_bem", "main"),
+                            ("utils.profiling", "span"), ("xtypes", "log_space")):
+        assert (where, qualname) in SLICE_7A_4B_FUNCTIONS
+    for where, (port_mod, ref_mod) in SLICE_7A_4B_MODULES.items():
+        if where != "xtypes":  # every public callable of the reference exists in the port
+            assert all(hasattr(port_mod, q.split(".")[0]) for q in _public_callables(ref_mod))
+
+
+def _same_default_or_stream(p, r):
+    """Equal defaults; a file default (``span``'s ``file=sys.stderr``) is
+    the interpreter's standard error in both, whatever object it was when
+    each module was imported."""
+    if hasattr(r.default, "write"):
+        return hasattr(p.default, "write")
+    if isinstance(p.default, torch.dtype):
+        return p.default == getattr(torch, np.dtype(r.default).name)
+    return _same_default(p.default, r.default)
+
+
+@pytest.mark.parametrize("where,qualname", SLICE_7A_4B_FUNCTIONS,
+                         ids=[f"{w}:{q}" for w, q in SLICE_7A_4B_FUNCTIONS])
+def test_slices_7a_4b_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE_7A_4B_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    ref_names = {r.name for r in ref}
+    extras = [p for p in port if p.name in ("dtype", "device") and p.name not in ref_names]
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None for p in extras), extras
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        assert _same_default_or_stream(p, r), (p.name, p.default, r.default)
