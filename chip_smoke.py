@@ -41,6 +41,17 @@ own 40-500 Hz in place of its 100 (the one reduction). Path 7 is the BEM
 QA suite (apps/qa_suite_bem.py): ``--fast``, then the 19 cases of its full
 list that use no FMM (phases 13-14).
 
+Path 8 is the single-level FMM (phase 15): bench.py's slfmm tier at its
+full shape (the N=5120 icosphere, k = 8, Burton–Miller beta = i/k, a
+float64 build on the card with the float32 stability screen tau = 1e4 and
+float32 aggregation phases, cast to complex64 in gather form,
+ClusterBlockPreconditioner, GMRES restart 48 tol 1e-5 at most 200
+iterations, a plane wave along +z), the QA suite's three slfmm cases, the
+roomsim CLI on configs/nearfield_stereo.json under ``auto`` (its FMM tier at
+N = 10440 with the near-field ILU(0)) at 40 and 500 Hz (of its 100
+frequencies: the one cut), and the FMM field evaluation at path 3's 8192
+points.
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -135,7 +146,26 @@ Phases, each fatal on failure:
    closed forms written out below agree with the port's pulsating-sphere
    oracle and the cavity case's to 1e-12 in float64; the variants the
    cases launch held against their twins at 320 and 1280 elements.
-   Phases 13-14 add their shapes to the kernels line's ``other_shapes``.
+   Phases 13-14 add their shapes to the kernels line's ``other_shapes``;
+15. path 8, the FMM (no hand-written kernel of its own; its field at the
+   listening points launches ``kh``, counted): TF32 off and the float32
+   matmul precision "highest" asserted; (a) the complex64 matvec within 1e-3
+   of the float64 one on the card (seeded x), GMRES converged, the surface
+   pressure's rel L2 against the Mie series (float64) within 1e-3 of the
+   float64 solve's, iterations within 2 of it; build seconds split into
+   octree and lists, translations, aggregation, near blocks, and the
+   preconditioner; matvec ms from Python and from a CUDA graph beside the
+   byte bound of the tensors it reads, device launches per matvec, solve
+   ms (median of 3 after a warm run), solves/s, peak memory; (d)
+   evaluate_field_fmm against evaluate_field at 8192 points on r = 2 from
+   (a)'s float64 solution (<= 1e-4 rel L2; complex64 printed); (b) the QA
+   slfmm cases (ka 0.5 at subdivision 2, ka 2 and 5 at 3), each rel_l2
+   within 2% + 1e-4 of the recorded run's; (c) main(argv) on the cut config
+   under auto: the JSON parses back with finite SPL, 40 Hz converged and
+   within 0.1 dB of the dense LU on the card, the FMM matvec at 40 Hz
+   within 1e-3 of the dense complex64 matrix's (seeded x), per frequency
+   converged and iterations printed, build / ILU / GMRES seconds printed;
+   the phase prints its own seconds.
 With ``--profile``, once every phase has passed, one more run of each
 path (for path 5 a fit at maxiter 100) runs under torch.profiler and its
 device time is printed by kernel group and kernel, with the device's idle
@@ -1855,6 +1885,317 @@ def qa_phase(ops, dev, counters):
     return records, {"qa main --fast": run_fast}
 
 
+# Phase 15: the single-level FMM (slice 5a) on the card. (a) is bench.py's
+# slfmm tier at its full shape (bench.py:523-567, 637-661): the N = 5120
+# icosphere, k = 8, Burton–Miller beta = i/k, stability_tau 1e4, float32
+# aggregation phases, a float64 build cast to complex64 in gather form,
+# ClusterBlockPreconditioner, GMRES restart 48 tol 1e-5 at most 200
+# iterations, a plane wave along +z. (b) the QA suite's three slfmm cases at
+# the reference's ka and subdivisions; (c) configs/nearfield_stereo.json
+# under ``auto`` (the FMM tier at N = 10440), cut to 40 and 500 Hz; (d) the
+# FMM field evaluation against the dense one at path 3's 8192 points.
+FMM_SUBDIV, FMM_K = 4, 8.0
+FMM_GMRES = dict(max_iterations=200, tolerance=1e-5, restart=48)
+FMM_MATVEC_TOL = 1e-3  # complex64 vs float64 on the card (bench.py:637-638's gate)
+FMM_MIE_TOL, FMM_ITER_TOL = 1e-3, 2  # complex64 vs float64 solve: Mie error, iterations
+FMM_QA_CASES = ((0.5, 2), (2.0, 3), (5.0, 3))  # apps/qa_suite_bem.py main's slfmm cases
+FMM_ROOM_FREQS = (40.0, 500.0)  # 2 of phase 13 (b)'s 8 frequencies: the cut
+FMM_ROOM_DB, FMM_ROOM_MATVEC = 0.1, 1e-3  # 40 Hz: SPL vs dense LU, matvec vs the dense matrix
+FMM_FIELD_TOL = 1e-4  # float64 FMM field vs dense (tests/test_fmm.py:229)
+# Build stages: functions of bem/fmm.py whose synchronised wall time each
+# stage sums ("leaf level" includes the screen, which is reported with the
+# translations).
+FMM_STAGES = {"leaf level": ("_leaf_level",), "screen": ("_stable_far_orders",),
+              "translations": ("_far_translations",),
+              "aggregation": ("_agg_disagg_tensors", "_apply_bm_row_factor"),
+              "near blocks": ("_near_blocks", "_near_blocks_mixed", "_room_near_blocks",
+                              "_static_dlp_row_sums")}
+
+
+def _timed_functions(module, groups):
+    """Wrap ``module``'s functions so each call appends its synchronised
+    wall seconds to its group's list: ({group: [seconds]}, restore)."""
+    import torch
+
+    calls = {g: [] for g in groups}
+    saved = {}
+    for group, names in groups.items():
+        for name in names:
+            saved[name] = getattr(module, name)
+
+            def timed(*args, _fn=saved[name], _group=group, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                calls[_group].append(time.perf_counter() - t0)
+                return out
+
+            setattr(module, name, timed)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+    return calls, restore
+
+
+def _build_split(calls, total):
+    """The build seconds split: octree and lists, translations, aggregation,
+    near blocks, the rest."""
+    sums = {g: sum(v) for g, v in calls.items()}
+    octree = sums["leaf level"] - sums["screen"]
+    trans = sums["screen"] + sums["translations"]
+    rest = total - octree - trans - sums["aggregation"] - sums["near blocks"]
+    return (f"octree and lists {octree:.3f} s, translations {trans:.3f} s, aggregation "
+            f"{sums['aggregation']:.3f} s, near blocks and row sums {sums['near blocks']:.3f} s, "
+            f"rest {rest:.3f} s")
+
+
+def device_launches(fn):
+    """Device activities (kernels, copies, memsets) of one ``fn()`` call, in
+    a profiler trace after a discarded warm-up step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                schedule=schedule) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def fmm_matvec_record(label, op, x):
+    """Time ``op.matvec(x)`` from Python and from a CUDA graph beside the
+    byte bound of the tensors it reads (each once) and the vector it
+    writes: a dict for the log and PERF.md."""
+    tensors = [t for t in op.data if t is not None]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) + 2 * x.numel() * x.element_size()
+    rec = dict(ms=time_ms(lambda: op.matvec(x)), graph_ms=graph_ms(lambda: op.matvec(x)),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, gbytes=nbytes / 1e9,
+               launches=device_launches(lambda: op.matvec(x)))
+    d = op.data
+    log(f"fmm {label} matvec: C = {d.clusters.shape[0]}, m = {d.clusters.shape[1]}, "
+        f"Q = {d.quad_w.shape[0]}, near pairs {d.near_b.shape[0]}, {rec['gbytes']:.3f} GB read and "
+        f"written; {rec['ms']:.4f} ms from Python, {rec['graph_ms']:.4f} ms in a CUDA graph, byte "
+        f"bound {rec['bound_ms']:.4f} ms, {rec['launches']} device launches per matvec")
+    return rec
+
+
+def fmm_phase(ops, dev, counters, subdiv=FMM_SUBDIV, room=ROOMSIM_WIDE, room_solver="auto",
+              qa_cases=FMM_QA_CASES, field_shape=FIELD_SHAPE):
+    """Phase 15: the FMM on the card, (a)-(d) above. Returns ({variant:
+    launches} of its counted run, callables for the profiler)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.apps import qa_suite_bem as qa
+    from mathaudio_tpu_torch.apps import roomsim_bem
+    from mathaudio_tpu_torch.bem import assembly, fmm, room_acoustics
+    from mathaudio_tpu_torch.bem.incident import plane_wave
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.bem.postprocess import (
+        evaluate_field,
+        evaluate_field_fmm,
+        generate_sphere_eval_points,
+    )
+    from mathaudio_tpu_torch.common.config import RoomConfig
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
+    from mathaudio_tpu_torch.solvers.preconditioners import ilu
+    from mathaudio_tpu_torch.wave.analytical import sphere_scattering_3d
+    from mathaudio_tpu_torch.xtypes import full_f32_matmul
+
+    t_phase = time.perf_counter()
+    c64, f64 = torch.complex64, torch.float64
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    log(f"fmm: TF32 matmul allowed {tf32[0]}, float32 matmul precision {tf32[1]!r}")
+    if tf32 != (False, "highest"):
+        raise AssertionError(f"the FMM needs true float32 products, not TF32: {tf32}")
+
+    # (a) bench.py's slfmm tier
+    mesh = icosphere(1.0, subdiv)
+    n, k, beta = mesh.num_elements, FMM_K, 1j / FMM_K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stages, restore = _timed_functions(fmm, FMM_STAGES)  # {stage: [seconds]}
+    try:
+        t0 = time.perf_counter()
+        op64 = fmm.build_slfmm_system(mesh, k, beta=beta, stability_tau=1e4, agg_phase_f32=True,
+                                      dtype=f64, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    finally:
+        restore()
+    t0 = time.perf_counter()
+    pre64 = fmm.ClusterBlockPreconditioner.from_operator(op64)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    log(f"fmm (a) N = {n}, k = {k:g}, beta = i/k: float64 build {t_build:.3f} s on the card "
+        f"({_build_split(stages, t_build)}), ClusterBlockPreconditioner {t_pre:.3f} s")
+    op64g = fmm.gather_form(op64)
+    op32, pre32 = fmm.gather_form(op64.to(c64)), pre64.to(c64)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n), device=dev)
+    y64 = op64g.matvec(x)
+    err = rel_l2(op32.matvec(x.to(c64)).to(y64.dtype), y64.cpu().numpy())
+    log(f"fmm (a) complex64 matvec vs the float64 one on the card: rel {err:.3e} "
+        f"(limit {FMM_MATVEC_TOL:g})")
+    if not err <= FMM_MATVEC_TOL:
+        raise AssertionError(f"fmm (a): complex64 matvec off by {err:.3e}")
+    mv_a = fmm_matvec_record(f"(a) N = {n} complex64 gather", op32, x.to(c64))
+
+    inc = plane_wave((0.0, 0.0, 1.0))
+    centers = torch.tensor(mesh.centers, dtype=f64, device=dev)
+    normals = torch.tensor(mesh.normals, dtype=f64, device=dev)
+    rhs = inc.pressure(centers, k) - beta * inc.normal_derivative(centers, normals, k)
+    c = mesh.centers
+    theta = np.arccos(np.clip(c[:, 2] / np.linalg.norm(c, axis=1), -1, 1))
+    mie = sphere_scattering_3d(k, 1.0, max(60, int(2 * k) + 20), [float(np.linalg.norm(c, axis=1).mean())],
+                               theta, dtype=f64, device=dev).pressure.reshape(-1).cpu().numpy()
+    config = KrylovConfig(**FMM_GMRES)
+    sol64 = gmres(op64g, rhs, config=config, preconditioner=pre64)
+
+    def solve32():
+        return gmres(op32, rhs.to(c64), config=config, preconditioner=pre32)
+
+    sol32 = solve32()
+    t_solve = median_ms(solve32)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    it64, it32 = int(sol64.iterations), int(sol32.iterations)
+    mie64, mie32 = rel_l2(sol64.x, mie), rel_l2(sol32.x, mie)
+    log(f"fmm (a) GMRES: float64 {it64} iterations (converged {bool(sol64.converged)}), complex64 "
+        f"{it32} (converged {bool(sol32.converged)}); surface pressure vs Mie rel L2 float64 "
+        f"{mie64:.4e}, complex64 {mie32:.4e} (diff limit {FMM_MIE_TOL:g}); complex64 solve "
+        f"{t_solve:.2f} ms (median of 3 after a warm run), {1e3 / t_solve:.2f} solves/s; peak "
+        f"memory {peak:.2f} GiB")
+    if not (bool(sol32.converged) and abs(mie32 - mie64) <= FMM_MIE_TOL
+            and abs(it32 - it64) <= FMM_ITER_TOL):
+        raise AssertionError(f"fmm (a): complex64 solve converged {bool(sol32.converged)}, Mie "
+                             f"{mie32:.4e} vs {mie64:.4e}, iterations {it32} vs {it64}")
+
+    # (d) the FMM field evaluation against the dense one, on (a)'s sphere
+    pts = generate_sphere_eval_points(2.0, *field_shape)
+    fields = {}
+    for name, p, dt in (("float64", sol64.x, f64), ("complex64", sol32.x, torch.float32)):
+        dense = evaluate_field(mesh, p, pts, k, inc, dtype=dt, device=dev)
+        fast = evaluate_field_fmm(mesh, p, pts, k, inc, dtype=dt, device=dev)
+        fields[name] = rel_l2(fast.p_total, dense.p_total.cpu().numpy())
+        t_dense = median_ms(lambda: evaluate_field(mesh, p, pts, k, inc, dtype=dt, device=dev))
+        t_fast = median_ms(lambda: evaluate_field_fmm(mesh, p, pts, k, inc, dtype=dt, device=dev))
+        log(f"fmm (d) {name}: evaluate_field_fmm vs evaluate_field at {len(pts)} points on r = 2, "
+            f"rel L2 {fields[name]:.3e}; FMM {t_fast:.2f} ms, dense {t_dense:.2f} ms (medians of 3)")
+    if not fields["float64"] <= FMM_FIELD_TOL:
+        raise AssertionError(f"fmm (d): float64 FMM field off by {fields['float64']:.3e}")
+    del op64, op64g, pre64, y64
+    torch.cuda.empty_cache()
+
+    # (b) the QA suite's slfmm cases
+    with open(QA_SUMMARY) as fh:
+        recorded = {cs["name"]: cs["rel_l2"] for cs in json.load(fh)["cases"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ka, sub in qa_cases:
+            r = qa.sphere_case(ka, sub, tmp, 0, "slfmm", device=dev)
+            got, want = r.metrics.l2_relative, recorded[r.name]
+            limit = QA_REL * want + QA_ABS
+            log(f"fmm (b) qa {r.name} (N = {r.metadata.num_dofs}, {r.metadata.solver}): rel_l2 "
+                f"{got:.6e}, recorded {want:.6e}, diff {abs(got - want):.3e} (limit {limit:.3e}), "
+                f"solve {r.metadata.wall_time_s * 1e3:.1f} ms")
+            if not abs(got - want) <= limit:
+                raise AssertionError(f"fmm (b) qa {r.name}: rel_l2 {got:.6e} vs the recorded {want:.6e}")
+
+    # (c) roomsim under auto on the wide room, at two of its frequencies
+    spec = json.loads(Path(room).read_text())
+    spec["frequencies"] = dict(spec["frequencies"], min_freq=FMM_ROOM_FREQS[0],
+                               max_freq=FMM_ROOM_FREQS[1], num_points=len(FMM_ROOM_FREQS))
+    solutions, solve_fmm = [], roomsim_bem._solve_room_fmm
+
+    def keep(*args, **kw):
+        solutions.append(solve_fmm(*args, **kw))
+        return solutions[-1]
+
+    split, restore = _timed_functions(roomsim_bem, {
+        "build": ("build_room_fmm_system",), "preconditioner": ("near_ilu_preconditioner",),
+        "gmres": ("gmres",)})
+    split_csr, restore_csr = _timed_functions(fmm, {"near csr": ("near_field_csr",)})
+    split_ilu, restore_ilu = _timed_functions(ilu, {"factor": ("ilu0_factor",)})
+    roomsim_bem._solve_room_fmm = keep
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, out = os.path.join(tmp, "room.json"), os.path.join(tmp, "out.json")
+        Path(cfg_path).write_text(json.dumps(spec))
+        try:
+            rc, launches = counted(f"(c) {Path(room).name} {room_solver}", counters,
+                                   lambda: _quiet(roomsim_bem.main, [cfg_path, "-o", out,
+                                                                     "--solver", room_solver]),
+                                   dev, path="fmm")
+        finally:
+            roomsim_bem._solve_room_fmm = solve_fmm
+            for undo in (restore, restore_csr, restore_ilu):
+                undo()
+        got = json.loads(Path(out).read_text())
+    need_launches("fmm (c)", launches, ("kh",))
+    spl = np.array([r["spl_db"] for r in got["results"]])
+    res = got["results"]
+    n_room = got["metadata"]["num_elements"]
+    log(f"fmm (c) {Path(room).name}: exit {rc}, N = {n_room}, tier "
+        f"{solutions[0].info['method'] if solutions else 'not fmm'}, {len(res)} frequencies")
+    if rc != 0 or len(solutions) != len(FMM_ROOM_FREQS) or not np.isfinite(spl).all():
+        raise AssertionError(f"fmm (c): exit {rc}, {len(solutions)} FMM solves, SPL {spl.tolist()}")
+    for i, (sol, r) in enumerate(zip(solutions, res)):
+        pre_rest = split["preconditioner"][i] - split_csr["near csr"][i] - split_ilu["factor"][i]
+        log(f"fmm (c) f = {sol.frequency:.2f} Hz: converged {r['converged']}, GMRES iterations "
+            f"{r['iterations']}; solve {r['solve_time_s'] * 1e3:.1f} ms = build "
+            f"{split['build'][i] * 1e3:.1f} ms + near-field CSR (host) "
+            f"{split_csr['near csr'][i] * 1e3:.1f} ms + ILU(0) factor (host C++) "
+            f"{split_ilu['factor'][i] * 1e3:.1f} ms + factors to the card {pre_rest * 1e3:.1f} ms + "
+            f"GMRES {split['gmres'][i] * 1e3:.1f} ms + rest; SPL {[round(v, 4) for v in r['spl_db']]} dB")
+    if not res[0]["converged"]:
+        raise AssertionError("fmm (c): GMRES did not converge at the lowest frequency")
+    f_lo = solutions[0].frequency
+    cfg_lo = RoomConfig.from_dict(dict(spec, frequencies=dict(spec["frequencies"], min_freq=f_lo,
+                                                              max_freq=f_lo, num_points=1)))
+    lu = roomsim_bem.run_bem_simulation(cfg_lo, verbose=0, solver="direct", device=dev)
+    err_db = float(np.abs(np.array(res[0]["spl_db"]) - np.array(lu.results[0].spl_db)).max())
+    log(f"fmm (c) {f_lo:.2f} Hz: SPL FMM vs dense LU on the card {err_db:.3e} dB (limit "
+        f"{FMM_ROOM_DB:g})")
+    if not err_db <= FMM_ROOM_DB:
+        raise AssertionError(f"fmm (c): SPL off the dense LU by {err_db:.3e} dB")
+    room_mesh, k_lo = solutions[0].mesh, solutions[0].k
+    op_room = fmm.gather_form(fmm.build_room_fmm_system(
+        room_mesh, k_lo, admittance=float(solutions[0].admittance[0]), dtype=f64,
+        stability_tau=1e4, device=dev).to(c64))
+    t = assembly._mesh_tensors(room_mesh, 3, torch.float32, dev)
+    rb = assembly._resolve_row_block(None, n_room, t[2].shape[1], t[0], "mixed")
+    a = room_acoustics._room_matrix(*t, k_lo, solutions[0].admittance.float(), rb)
+    xr = torch.as_tensor(rng.standard_normal(n_room) + 1j * rng.standard_normal(n_room),
+                         device=dev).to(c64)
+    with full_f32_matmul():
+        want = (a @ xr).cpu().numpy()
+    err_mv = rel_l2(op_room.matvec(xr), want)
+    log(f"fmm (c) {f_lo:.2f} Hz: FMM matvec vs the dense matrix ({a.numel() * 8 / 1e9:.2f} GB, "
+        f"complex64) rel L2 {err_mv:.3e} (limit {FMM_ROOM_MATVEC:g})")
+    del a
+    torch.cuda.empty_cache()
+    if not err_mv <= FMM_ROOM_MATVEC:
+        raise AssertionError(f"fmm (c): FMM matvec off the dense one by {err_mv:.3e}")
+    mv_c = fmm_matvec_record(f"(c) N = {n_room} at {f_lo:.2f} Hz complex64 gather", op_room, xr)
+    del op_room, solutions
+    torch.cuda.empty_cache()
+    log(f"fmm: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+    one = RoomConfig.from_dict(dict(spec, frequencies=dict(spec["frequencies"], min_freq=f_lo,
+                                                           max_freq=f_lo, num_points=1)))
+    runs = {"fmm (a) complex64 solve": solve32,
+            f"fmm (c) roomsim {f_lo:.0f} Hz": lambda: roomsim_bem.run_bem_simulation(
+                one, verbose=0, solver=room_solver, device=dev)}
+    return launches, runs, (mv_a, mv_c)
+
+
 def main() -> int:
     import argparse
 
@@ -2015,6 +2356,13 @@ def main() -> int:
             for r in recs:
                 bem_records[variant].setdefault("other_shapes", []).append(r)
                 bem_records[variant]["launches"] += r["launches"]
+
+    # 15. slice 5a: the FMM on the card
+    fmm_launches, fmm_runs, _ = fmm_phase(bem_assembly, dev, (dia, bem_assembly))
+    app_runs.update(fmm_runs)
+    for variant, count in fmm_launches.items():
+        if variant in bem_records:
+            bem_records[variant]["launches"] += count
 
     # profiles last, once every kernel has run
     if profile:

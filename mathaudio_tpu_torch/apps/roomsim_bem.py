@@ -5,10 +5,14 @@ SPL at listening positions -> SimulationResults JSON.
 The tier follows the reference's table: ``--solver`` overrides it;
 otherwise a "direct" method or N < 1000 elements gives the dense LU, a
 method containing "fmm" or N >= 4000 the FMM tier, anything else
-Jacobi-preconditioned GMRES. The FMM tier is slice 5 of the port and
-raises a ``ValueError`` before any assembly. The dense tiers and the field
-evaluation run on the GPU in float32 by default; ``--cpu`` runs them on the
-CPU in float64 (the reference's ``--cpu``: CPU platform and x64).
+Jacobi-preconditioned GMRES. The FMM tier (``fmm``, ``fmm-ilu`` and
+``fmm-batched`` alike) solves with GMRES through the SLFMM operator of the
+interior room system, preconditioned by ILU(0) of its near field (factored
+on the host by the native C++ kernel): in float32 from a float64 build with
+the screen of float32 execution, cast to complex64 (in gather form on the
+GPU), as the reference's chip path; with ``--cpu`` in float64 as its CPU
+path. Every tier runs on the GPU in float32 by default; ``--cpu`` runs on
+the CPU in float64 (the reference's ``--cpu``: CPU platform and x64).
 
     python -m mathaudio_tpu_torch.apps.roomsim_bem configs/small_room.json [--cpu] [-o out.json]
 """
@@ -22,43 +26,46 @@ import time
 import numpy as np
 import torch
 
-from mathaudio_tpu_torch.bem.room_acoustics import solve_room_bem
+from mathaudio_tpu_torch.bem.fmm import (
+    build_room_fmm_system,
+    execution_form,
+    execution_tau,
+    near_ilu_preconditioner,
+)
+from mathaudio_tpu_torch.bem.room_acoustics import RoomBemSolution, _source_pressure, solve_room_bem
 from mathaudio_tpu_torch.common.config import RoomConfig
 from mathaudio_tpu_torch.common.output import create_output_json
+from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
 from mathaudio_tpu_torch.utils.profiling import span
-from mathaudio_tpu_torch.xtypes import default_float, pressure_to_spl, resolve_device
+from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, pressure_to_spl, resolve_device
 
 SOLVERS = ["auto", "direct", "gmres", "gmres-ilu", "fmm", "fmm-ilu", "fmm-batched"]
 
 
 def solver_tier(config: RoomConfig, n: int, solver: str = "auto") -> str:
-    """"lu" or "gmres" by the reference's table (the ``--solver`` override,
-    else the config's method and the element count ``n``). The FMM tier
-    raises a ValueError naming its slice."""
+    """"lu", "gmres" or "fmm" by the reference's table: the ``--solver``
+    override, else the config's method and the element count ``n``."""
     if solver != "auto":
         t = solver.replace("_", "-")
         if t in ("direct", "lu"):
             return "lu"
         if t in ("gmres", "gmres-ilu", "gmres-jacobi"):
             return "gmres"
-        if t not in ("fmm", "fmm-ilu", "fmm-batched"):
-            raise SystemExit(f"unknown solver {solver!r}")
-        why = f"--solver {solver}"
-    elif config.solver.method == "direct" or n < 1000:
+        if t in ("fmm", "fmm-ilu", "fmm-batched"):
+            return "fmm"
+        raise SystemExit(f"unknown solver {solver!r}")
+    if config.solver.method == "direct" or n < 1000:
         return "lu"
-    elif "fmm" in config.solver.method or n >= 4000:
-        why = (f"the method {config.solver.method!r}" if "fmm" in config.solver.method
-               else f"N = {n} >= 4000 elements")
-    else:
-        return "gmres"
-    raise ValueError(f"{why} selects the FMM tier, which is not ported yet (slice 5, FMM); "
-                     "pass solver='gmres' or 'direct' for a dense tier")
+    if "fmm" in config.solver.method or n >= 4000:
+        return "fmm"
+    return "gmres"
 
 
 def run_bem_simulation(config: RoomConfig, verbose: int = 1, solver: str = "auto", *,
                        dtype=None, device=None):
-    """Every frequency of ``config`` through ``solve_room_bem`` and the
-    field at the listening positions, on ``device`` (default the GPU;
+    """Every frequency of ``config`` through its tier (``solve_room_bem``
+    for the dense ones, ``_solve_room_fmm`` for the FMM one) and the field
+    at the listening positions, on ``device`` (default the GPU;
     raises without one) in ``dtype`` (default float32). Besides the
     reference's fields, each result records its GMRES iterations (0 for
     LU)."""
@@ -89,8 +96,11 @@ def run_bem_simulation(config: RoomConfig, verbose: int = 1, solver: str = "auto
     conv, iters, times = [], [], []
     for fi, f in enumerate(sim.frequencies):
         t0 = time.perf_counter()
-        sol = solve_room_bem(mesh, float(f), sim.sources, admittance=beta, method=method,
-                             dtype=dtype, device=device)
+        if method == "fmm":
+            sol = _solve_room_fmm(mesh, float(f), sim.sources, beta, dtype=dtype, device=device)
+        else:
+            sol = solve_room_bem(mesh, float(f), sim.sources, admittance=beta, method=method,
+                                 dtype=dtype, device=device)
         p = sol.evaluate_pressure(lp).cpu().numpy()  # waits for the device
         all_p[fi] = p
         conv.append(bool(sol.info.get("converged", True)))
@@ -122,6 +132,40 @@ def run_bem_simulation(config: RoomConfig, verbose: int = 1, solver: str = "auto
     return results
 
 
+def _solve_room_fmm(mesh, frequency, sources, beta, speed_of_sound=343.0, *, dtype=None,
+                    device=None):
+    """FMM-accelerated interior solve (room_acoustics/solver.rs:975
+    solve_bem_fmm_gmres_ilu): matrix-free GMRES (restart 50, tol 1e-7, at
+    most 1000 iterations) through the SLFMM operator, preconditioned by
+    ILU(0) of its near field, factored on the host.
+
+    The build is float64 with the screen of the solve's precision, the ILU
+    factors and the operator cast to it (``fmm.execution_tau``,
+    ``fmm.execution_form``): in float32 (the default, on the GPU) the
+    reference chip path's tau 1e4 and complex64, the operator in gather
+    form; in float64 (``--cpu``) the reference's CPU path, tau 1e8. The
+    solution lives on ``device``; the field at the listening points goes
+    through RoomBemSolution.evaluate_pressure (the Kirchhoff–Helmholtz
+    kernel on the GPU)."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    k = 2.0 * np.pi * frequency / speed_of_sound
+    config = KrylovConfig(max_iterations=1000, tolerance=1e-7, restart=50)
+    op = build_room_fmm_system(mesh, k, admittance=beta, dtype=torch.float64,
+                               stability_tau=execution_tau(dtype), device=device)
+    pre = execution_form(near_ilu_preconditioner(op), dtype)
+    op = execution_form(op, dtype)
+    centers = torch.tensor(mesh.centers, dtype=torch.float64, device=device)
+    rhs = _source_pressure(centers, sources, k, frequency).to(complex_dtype_for(dtype))
+    sol = gmres(op.matvec, rhs, config=config, preconditioner=pre)
+    beta_vec = torch.full((mesh.num_elements,), float(beta), dtype=dtype, device=device)
+    return RoomBemSolution(
+        mesh, k, frequency, sol.x, beta_vec, sources,
+        {"method": "fmm", "converged": bool(sol.converged), "iterations": int(sol.iterations),
+         "n": mesh.num_elements},
+    )
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="roomsim", description="BEM room simulator (PyTorch/CUDA)")
     ap.add_argument("config")
@@ -130,7 +174,7 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU in float64 (default: the GPU in float32)")
     ap.add_argument("--solver", default="auto", choices=SOLVERS,
-                    help="override the size-based solver table (the fmm choices are slice 5)")
+                    help="override the size-based solver table")
     ap.add_argument("--mesh-resolution", type=int, default=None,
                     help="surface elements per meter")
     args = ap.parse_args(argv)

@@ -3,8 +3,10 @@
 Constant-element collocation as batched pairwise kernels (hand-written
 CUDA on the GPU, ops/bem_assembly.py), Burton–Miller coupling, dense LU
 or GMRES solves, Kirchhoff–Helmholtz field evaluation as a second
-pairwise kernel, and the interior room BEM. The FMM engines are a later
-slice of the port.
+pairwise kernel, the interior room BEM, and the single-level FMM
+(bem/fmm.py) with its near-field preconditioners. The multilevel FMM is
+slice 5b of the port; the reference's ``fmm_chip`` names (re/im planes for
+a transport without complex numbers) have no counterpart.
 """
 
 from mathaudio_tpu_torch.bem.types import (  # noqa: F401
@@ -29,4 +31,13 @@ from mathaudio_tpu_torch.bem.postprocess import (  # noqa: F401
     generate_line_eval_points,
     generate_plane_eval_points,
     generate_sphere_eval_points,
+)
+from mathaudio_tpu_torch.bem.fmm import (  # noqa: F401
+    ClusterBlockPreconditioner,
+    build_room_fmm_system,
+    build_slfmm_mixed_system,
+    build_slfmm_system,
+    gather_form,
+    sel_form,
+    near_ilu_preconditioner,
 )

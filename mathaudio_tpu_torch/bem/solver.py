@@ -1,10 +1,11 @@
 """High-level BEM API (counterpart of mathaudio_tpu/bem/solver.py):
 BemProblem (geometry + physics + excitation), BemSolver (dense assembly
-with LU or GMRES), BemSolution (surface pressure + field evaluation).
+with LU or GMRES, or the matrix-free SLFMM with GMRES), BemSolution
+(surface pressure + field evaluation, dense or FMM).
 
-The FMM assemblies, the FMM field evaluation, the BiCGStab/CGS/QMRCGStab
-solvers and the device-mesh sharding are later slices of the port; each
-raises a ``ValueError`` that names its slice.
+The MLFMM tree for rigid problems (slice 5b), the BiCGStab/CGS/QMRCGStab
+solvers (slice 6) and the device-mesh sharding (slice 8) are later slices
+of the port; each raises a ``ValueError`` that names its slice.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mathaudio_tpu_torch.bem.assembly import (
@@ -20,9 +22,15 @@ from mathaudio_tpu_torch.bem.assembly import (
     assemble_mixed_system,
     bc_vectors,
 )
+from mathaudio_tpu_torch.bem.fmm import (
+    build_slfmm_mixed_system,
+    build_slfmm_system,
+    execution_form,
+    execution_tau,
+)
 from mathaudio_tpu_torch.bem.incident import IncidentField, plane_wave
 from mathaudio_tpu_torch.bem.mesh import SurfaceMesh, icosphere
-from mathaudio_tpu_torch.bem.postprocess import FieldResult, evaluate_field
+from mathaudio_tpu_torch.bem.postprocess import FieldResult, evaluate_field, evaluate_field_fmm
 from mathaudio_tpu_torch.bem.types import (
     BemMethod,
     BemSolverConfig,
@@ -33,7 +41,7 @@ from mathaudio_tpu_torch.bem.types import (
 from mathaudio_tpu_torch.solvers.direct import lu_solve
 from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
 from mathaudio_tpu_torch.solvers.preconditioners.basic import jacobi_preconditioner
-from mathaudio_tpu_torch.xtypes import default_float, resolve_device
+from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
 
 _PORTED_METHODS = (SolverMethod.LU, SolverMethod.GMRES, SolverMethod.GMRES_ILU)
 
@@ -94,12 +102,12 @@ class BemSolution:
 
     def evaluate_pressure_field(self, points, quad_order: int = 3,
                                 method: str = "dense") -> FieldResult:
-        if method == "fmm":
-            raise ValueError("method='fmm' (evaluate_field_fmm) is not ported yet (slice 5, FMM); "
-                             "use method='dense'")
-        if method != "dense":
+        """method='fmm' uses the O((N+M) log) clustered evaluation
+        (postprocess.evaluate_field_fmm): the same result, for large grids."""
+        if method not in ("dense", "fmm"):
             raise ValueError(f"unknown field evaluation method {method!r}")
-        return evaluate_field(
+        fn = evaluate_field_fmm if method == "fmm" else evaluate_field
+        return fn(
             self.problem.mesh,
             self.surface_pressure,
             points,
@@ -113,8 +121,15 @@ class BemSolution:
 
 
 class BemSolver:
-    """Dense assembly x solver dispatch, on ``device`` (default ``cuda``;
-    raises without a GPU) in ``dtype`` (default float32)."""
+    """Assembly x solver dispatch, on ``device`` (default ``cuda``; raises
+    without a GPU) in ``dtype`` (default float32).
+
+    The FMM assemblies run GMRES whatever the method (matrix-free: LU has
+    nothing to factor), as the reference does, on an SLFMM operator built
+    in float64 (``fmm.execution_tau``, ``fmm.execution_form``): in float64
+    the reference's build (stability tau 1e8); in float32 the reference
+    chip path's screen for float32 execution (tau 1e4) and a cast to
+    complex64; on the GPU in its scatter-free ``gather_form``."""
 
     def __init__(self, config: Optional[BemSolverConfig] = None, dtype=None, device=None):
         self.config = config or BemSolverConfig()
@@ -123,9 +138,6 @@ class BemSolver:
 
     def _check_config(self) -> None:
         cfg = self.config
-        if cfg.assembly in (BemMethod.SLFMM, BemMethod.MLFMM):
-            raise ValueError(f"assembly {cfg.assembly.value!r} is not ported yet (slice 5, FMM); "
-                             "use BemMethod.TBEM")
         if cfg.method not in _PORTED_METHODS:
             raise ValueError(f"solver method {cfg.method.value!r} is not ported yet (slice 6, "
                              "the rest of the solvers); use LU or GMRES")
@@ -154,6 +166,10 @@ class BemSolver:
         return sol.x
 
     def solve(self, problem: BemProblem) -> BemSolution:
+        if self.config.assembly in (BemMethod.SLFMM, BemMethod.MLFMM):
+            if problem.bc is not None:
+                return self._solve_mixed_fmm(problem)
+            return self._solve_fmm(problem)
         self._check_config()
         if problem.bc is not None:
             return self._solve_mixed(problem)
@@ -194,8 +210,14 @@ class BemSolver:
         )
         info = {"method": cfg.method.value, "burton_miller": cfg.burton_miller,
                 "mixed_bc": True, "n": mesh.num_elements}
-        u = self._linear_solve(a, b, info)
+        return self._mixed_solution(problem, self._linear_solve(a, b, info), info)
 
+    @staticmethod
+    def _mixed_solution(problem: BemProblem, u, info: dict) -> BemSolution:
+        """Both full surface fields from the mixed solution vector ``u``
+        (p on velocity elements, dp/dn on pressure elements)."""
+        ph = problem.physics
+        k = ph.wave_number
         up, p_known, q_known, adm = bc_vectors(problem.bc, k, ph.density, ph.speed_of_sound,
                                                u.dtype, u.device)
         p_full = torch.where(up, u, p_known)
@@ -204,3 +226,76 @@ class BemSolver:
             # velocity-with-admittance: q = i omega rho v - i k adm * p
             q_full = torch.where(up, q_known - 1j * k * adm * p_full, q_full)
         return BemSolution(problem, p_full, info, surface_q=q_full)
+
+    def _fmm_build(self) -> dict:
+        """Build keywords of the FMM paths: float64 on the solver's device,
+        with the screen of the solve's precision (``fmm.execution_tau``)."""
+        return dict(dtype=torch.float64, stability_tau=execution_tau(self.dtype),
+                    device=resolve_device(self.device))
+
+    def _fmm_gmres(self, op, rhs):
+        """Unpreconditioned GMRES on the operator in its execution form."""
+        cfg = self.config
+        kcfg = KrylovConfig(max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+                            restart=cfg.restart)
+        op = execution_form(op, self.dtype)
+        return gmres(op.matvec, rhs.to(complex_dtype_for(self.dtype)), config=kcfg)
+
+    def _solve_mixed_fmm(self, problem: BemProblem) -> BemSolution:
+        """Matrix-free mixed-BC solve (fmm.build_slfmm_mixed_system):
+        per-element velocity/pressure/admittance BCs at FMM scale. Only the
+        SLFMM operator exists for mixed columns, so an MLFMM config routes
+        here too (recorded in info); GMRES whatever the method."""
+        cfg = self.config
+        mesh = problem.mesh
+        ph = problem.physics
+        beta = self.burton_miller_beta(problem) if cfg.burton_miller else 0.0
+        op, rhs, _ = build_slfmm_mixed_system(
+            mesh, ph.wave_number, problem.bc, beta=beta, incident=problem.incident,
+            density=ph.density, speed_of_sound=ph.speed_of_sound, quad_order=cfg.quad_order,
+            **self._fmm_build())
+        sol = self._fmm_gmres(op, rhs)
+        info = {
+            "method": "gmres",  # matrix-free: LU/BiCGStab configs fall back
+            "assembly": BemMethod.SLFMM.value,
+            "burton_miller": cfg.burton_miller,
+            "mixed_bc": True,
+            "n": mesh.num_elements,
+            "converged": bool(sol.converged),
+            "iterations": int(sol.iterations),
+        }
+        return self._mixed_solution(problem, sol.x, info)
+
+    def _solve_fmm(self, problem: BemProblem) -> BemSolution:
+        """Matrix-free SLFMM path: CBIE with GMRES; Burton–Miller rides the
+        direction-space row factors. LU is impossible matrix-free, so it
+        falls back to GMRES (recorded in info). The MLFMM tree is slice 5b."""
+        cfg = self.config
+        if cfg.assembly == BemMethod.MLFMM:
+            raise ValueError("assembly 'mlfmm' on a rigid problem needs the MLFMM tree, which is "
+                             "not ported yet (slice 5b, MLFMM); use BemMethod.SLFMM")
+        mesh = problem.mesh
+        k = problem.physics.wave_number
+        build = self._fmm_build()
+        centers = torch.tensor(mesh.centers, dtype=torch.float64, device=build["device"])
+        rhs = problem.incident.pressure(centers, k)
+        beta = 0.0
+        if cfg.burton_miller:
+            # the reference's FMM path takes ka from the mean center radius
+            ka = k * float(np.linalg.norm(mesh.centers, axis=1).mean())
+            scale = cfg.beta_scale or problem.physics.optimal_beta_scale(ka)
+            beta = problem.physics.burton_miller_beta_optimal(mesh.avg_element_size()) * scale
+            normals = torch.tensor(mesh.normals, dtype=torch.float64, device=build["device"])
+            rhs = rhs - beta * problem.incident.normal_derivative(centers, normals, k)
+        op = build_slfmm_system(mesh, k, beta=beta, max_per_leaf=64, separation_ratio=2.0,
+                                **build)
+        sol = self._fmm_gmres(op, rhs)
+        info = {
+            "method": "gmres",  # matrix-free: LU falls back to GMRES
+            "assembly": cfg.assembly.value,
+            "burton_miller": cfg.burton_miller,
+            "n": mesh.num_elements,
+            "converged": bool(sol.converged),
+            "iterations": int(sol.iterations),
+        }
+        return BemSolution(problem, sol.x, info)

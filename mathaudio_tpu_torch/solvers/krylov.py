@@ -10,6 +10,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mathaudio_tpu_torch.solvers.operators import as_matvec
 from mathaudio_tpu_torch.xtypes import full_f32_matmul
 
 
@@ -48,18 +49,6 @@ def _givens(a, b):
     s = torch.where(t > 0, phase * torch.conj(b) / safe_t, zero)
     r = phase * t
     return c, s, r
-
-
-def as_matvec(a):
-    """Normalize operator-ish inputs (an object with ``matvec``, a
-    callable, or a 2-D tensor) to an ``x -> A x`` callable."""
-    if hasattr(a, "matvec"):
-        return a.matvec
-    if callable(a):
-        return a
-    if isinstance(a, torch.Tensor) and a.dim() == 2:
-        return lambda x: a @ x
-    raise TypeError(f"cannot interpret {type(a)} as a linear operator")
 
 
 def _givens_host(a: complex, b: complex):

@@ -5,17 +5,7 @@ from __future__ import annotations
 
 import torch
 
-
-class DiagonalOperator:
-    """x -> d * x, with the ``matvec`` protocol the Krylov solvers take."""
-
-    def __init__(self, d: torch.Tensor):
-        self.d = d
-
-    def matvec(self, x):
-        return self.d * x
-
-    __call__ = matvec
+from mathaudio_tpu_torch.solvers.operators import DiagonalOperator
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> DiagonalOperator:

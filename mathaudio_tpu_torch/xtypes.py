@@ -38,6 +38,17 @@ def real_dtype_for(complex_dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if complex_dtype == torch.complex128 else torch.float32
 
 
+def to_precision(t: torch.Tensor, cdtype=None, device=None) -> torch.Tensor:
+    """``t`` at the precision of the complex dtype ``cdtype``: a complex
+    tensor becomes ``cdtype``, a floating one its real counterpart, any
+    other keeps its dtype; all move to ``device`` (None keeps both)."""
+    if cdtype is not None and t.is_complex():
+        return t.to(dtype=cdtype, device=device)
+    if cdtype is not None and t.is_floating_point():
+        return t.to(dtype=real_dtype_for(cdtype), device=device)
+    return t.to(device=device)
+
+
 def is_complex(x) -> bool:
     return torch.as_tensor(x).is_complex()
 

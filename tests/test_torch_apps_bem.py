@@ -6,10 +6,19 @@ app's SPL to 1e-9 dB with the auto tier (LU) and with GMRES, and its CLI
 writes the JSON; the four QA case functions at subdivision 1 give the JAX
 package's rel_l2 to 1e-9 (relative); the nine non-FMM cases of
 qa_bem_results/summary.json at subdivision 2 give the recorded values to
-1e-6 (no JAX); ``main --fast --cpu`` exits 0. Every FMM route of both apps
-raises a ValueError naming slice 5 before any assembly. Tests marked
-``cuda`` run small_room.json on the card against the CPU in float64.
+1e-6 (no JAX); ``main --fast --cpu`` exits 0. Every FMM route of roomsim
+picks the FMM tier (``_solve_room_fmm``), and that tier on the tiny room
+gives the JAX app's SPL to 1e-6 dB with equal GMRES iterations; the QA
+``slfmm`` case at subdivision 1 gives the JAX package's rel_l2 to 1e-9
+(relative); the QA ``mlfmm`` case raises a ValueError naming slice 5b
+before any assembly. The FMM comparisons run the reference with its
+float32 near-block quadrature and static row sums in float64
+(``reference_in_float64``, as in tests/test_torch_fmm.py, whose docstring
+says why). Tests marked ``cuda`` run small_room.json on the card against
+the CPU in float64.
 """
+
+import contextlib
 
 import json
 import math
@@ -21,6 +30,7 @@ import torch
 
 import mathaudio_tpu.apps.qa_suite_bem as jax_qa
 import mathaudio_tpu.apps.roomsim_bem as jax_roomsim
+import mathaudio_tpu.bem.fmm as jax_fmm
 import mathaudio_tpu.common as jax_common
 import mathaudio_tpu_torch.apps.qa_suite_bem as qa
 import mathaudio_tpu_torch.apps.roomsim_bem as roomsim
@@ -40,6 +50,27 @@ TINY = {  # tests/test_common_apps.py TestRoomSimApps.tiny_config, at mesh_resol
 RECORDED = [("sphere_case", ka, {}) for ka in (0.1, 0.5, 1.0)] + [
     ("sphere_case", 0.5, {"solver": s}) for s in ("lu", "gmres")] + [
     ("pulsating_case", ka, {}) for ka in (0.5, 1.0, 2.0, math.pi)]
+
+
+class _Float64Numpy:
+    """numpy with ``float32`` reading float64."""
+
+    float32 = np.float64
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+
+@contextlib.contextmanager
+def reference_in_float64():
+    """The reference's float32 FMM near-block quadrature and static row
+    sums run in float64 (see tests/test_torch_fmm.py)."""
+    saved = jax_fmm.np
+    jax_fmm.np = _Float64Numpy()
+    try:
+        yield
+    finally:
+        jax_fmm.np = saved
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -89,20 +120,58 @@ def _never_assembles(monkeypatch, module, name):
     monkeypatch.setattr(module, name, fail)
 
 
+class _Routed(Exception):
+    pass
+
+
 @pytest.mark.parametrize("route", ["fmm", "fmm-ilu", "fmm-batched", "fmm_ilu", "auto N>=4000",
                                    "auto method fmm"])
-def test_roomsim_fmm_routes_name_slice_5_before_assembly(route, monkeypatch):
+def test_roomsim_fmm_routes_pick_the_fmm_tier(route, monkeypatch):
+    """Each FMM route reaches ``_solve_room_fmm`` (stopped there) and never
+    the dense ``solve_room_bem``."""
     _never_assembles(monkeypatch, roomsim, "solve_room_bem")
+    reached = []
+
+    def fmm_tier(mesh, f, sources, beta, **kw):
+        reached.append(mesh.num_elements)
+        raise _Routed
+
+    monkeypatch.setattr(roomsim, "_solve_room_fmm", fmm_tier)
     cfg = common.RoomConfig.from_dict(TINY)
     solver = route
     if route == "auto N>=4000":  # 9408 elements
         cfg.solver.method, cfg.solver.mesh_resolution, solver = "gmres", 14, "auto"
     elif route == "auto method fmm":  # 1728 elements; below 1000 the table picks LU first
         cfg.solver.method, cfg.solver.mesh_resolution, solver = "fmm-ilu", 6, "auto"
-    with pytest.raises(ValueError, match="slice 5"):
+    with pytest.raises(_Routed):
         roomsim.run_bem_simulation(cfg, verbose=0, solver=solver, **CPU64)
+    assert reached == [{"auto N>=4000": 9408, "auto method fmm": 1728}.get(route, 432)]
+    assert roomsim.solver_tier(cfg, reached[0], solver) == "fmm"
     with pytest.raises(SystemExit):
         roomsim.run_bem_simulation(cfg, verbose=0, solver="cholesky", **CPU64)
+
+
+def test_roomsim_fmm_tier_matches_the_reference_app(monkeypatch):
+    """The FMM tier with --cpu (float64, tau 1e8, near ILU(0), GMRES at
+    restart 50, tol 1e-7) on the tiny room at 50 and 90 Hz."""
+    tiny = dict(TINY, frequencies={"min_freq": 50.0, "max_freq": 90.0, "num_points": 2})
+    infos, solve = [], jax_roomsim._solve_room_fmm
+
+    def keep(*args, **kw):
+        sol = solve(*args, **kw)
+        infos.append(sol.info)
+        return sol
+
+    monkeypatch.setattr(jax_roomsim, "_solve_room_fmm", keep)
+    with reference_in_float64():
+        ref = jax_roomsim.run_bem_simulation(jax_common.RoomConfig.from_dict(tiny), verbose=0,
+                                             solver="fmm")
+    got = roomsim.run_bem_simulation(common.RoomConfig.from_dict(tiny), verbose=0, solver="fmm",
+                                     **CPU64)
+    spl, ref_spl = (np.array([r.spl_db for r in res.results]) for res in (got, ref))
+    assert spl.shape == (2, 1) and np.abs(spl - ref_spl).max() <= 1e-6
+    assert [r.iterations for r in got.results] == [i["iterations"] for i in infos]
+    assert [r.converged for r in got.results] == [r.converged for r in ref.results] == [True] * 2
 
 
 def test_solver_tier_is_the_reference_table():
@@ -114,6 +183,11 @@ def test_solver_tier_is_the_reference_table():
     assert roomsim.solver_tier(cfg, 5000, "direct") == "lu"
     for s in ("gmres", "gmres-ilu", "gmres_jacobi"):
         assert roomsim.solver_tier(cfg, 5000, s) == "gmres"
+    for s in ("fmm", "fmm-ilu", "fmm_batched"):
+        assert roomsim.solver_tier(cfg, 500, s) == "fmm"
+    assert roomsim.solver_tier(cfg, 4000) == "fmm"
+    cfg.solver.method = "fmm"
+    assert roomsim.solver_tier(cfg, 1000) == "fmm" and roomsim.solver_tier(cfg, 999) == "lu"
     cfg.solver.method = "direct"
     assert roomsim.solver_tier(cfg, 9000) == "lu"
 
@@ -161,14 +235,23 @@ def test_qa_main_fast_on_the_cpu(tmp_path, capsys):
         c["name"] for c in summary["cases"]]
 
 
-@pytest.mark.parametrize("solver", ["slfmm", "mlfmm"])
-def test_qa_fmm_cases_name_slice_5_before_assembly(solver, tmp_path, monkeypatch):
+def test_qa_slfmm_case_matches_the_reference(tmp_path):
+    (tmp_path / "ref").mkdir()
+    with reference_in_float64():
+        ref = jax_qa.sphere_case(0.5, 1, str(tmp_path / "ref"), 0, "slfmm")
+    got = qa.sphere_case(0.5, 1, str(tmp_path), 0, "slfmm", **CPU64)
+    assert got.name == ref.name == "sphere_scattering_ka0.5_slfmm"
+    assert got.parameters == ref.parameters and got.metadata.solver == ref.metadata.solver
+    assert abs(got.metrics.l2_relative / ref.metrics.l2_relative - 1) <= 1e-9
+
+
+def test_qa_mlfmm_case_names_slice_5b_before_assembly(tmp_path, monkeypatch):
     import mathaudio_tpu_torch.bem.solver as bem_solver
 
-    for name in ("assemble_burton_miller", "assemble_collocation_matrix"):
+    for name in ("assemble_burton_miller", "assemble_collocation_matrix", "build_slfmm_system"):
         _never_assembles(monkeypatch, bem_solver, name)
-    with pytest.raises(ValueError, match="slice 5"):
-        qa.sphere_case(0.5, 1, str(tmp_path), 0, solver, **CPU64)
+    with pytest.raises(ValueError, match="slice 5b"):
+        qa.sphere_case(0.5, 1, str(tmp_path), 0, "mlfmm", **CPU64)
 
 
 def test_qa_tables_are_the_references():

@@ -6,7 +6,8 @@ Both packages get the same mesh and the same seeded surface fields (numpy
 arrays) on the CPU in float64: a rigid surface under a plane wave (double
 layer only) and a radiating one with dp/dn (single and double layer), in
 one shot and in chunks of 24 field points (50 points leave a ragged last
-chunk of 2, which the reference pads). Fields agree to 1e-10 of max|p|.
+chunk of 2, which the reference pads), and through the FMM evaluation
+(evaluate_field_fmm). Fields agree to 1e-10 of max|p|.
 The reference's jitted evaluation runs eagerly (``jax.disable_jit``).
 """
 
@@ -111,6 +112,20 @@ def test_plane_points_match_reference(normal):
                                   jax_post.generate_plane_eval_points(*args))
 
 
-def test_fmm_evaluation_names_its_slice():
-    with pytest.raises(ValueError, match="slice 5"):
-        post.evaluate_field_fmm(None, None, None, 1.0)
+@pytest.mark.parametrize("radiating", [False, True], ids=["rigid", "with_q_surf"])
+def test_fmm_evaluation_matches_reference(setup, radiating):
+    """evaluate_field_fmm (bem/fmm.py's aggregation and translations) on
+    the same surface fields, with the reference's default clustering and
+    with leaves of 8 (far pairs between the 80 elements and the 50 points)."""
+    jm, tm, p_surf, q_surf, points = setup
+    d = (0.2, 0.1, 1.0)
+    for leaf in (32, 8):
+        ref = jax_post.evaluate_field_fmm(jm, p_surf, points, K, jax_plane_wave(d),
+                                          max_per_leaf=leaf, q_surf=q_surf if radiating else None)
+        got = post.evaluate_field_fmm(tm, p_surf, points, K, plane_wave(d), max_per_leaf=leaf,
+                                      q_surf=q_surf if radiating else None,
+                                      dtype=torch.float64, device="cpu")
+        scale = np.max(np.abs(np.asarray(ref.p_total)))
+        for field in ("p_inc", "p_scat", "p_total"):
+            err = np.max(np.abs(getattr(got, field).numpy() - np.asarray(getattr(ref, field))))
+            assert err < 1e-10 * scale, (leaf, field, err)

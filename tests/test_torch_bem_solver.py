@@ -8,8 +8,8 @@ CPU in float64. Surface pressures, surface dp/dn and the fields at 40
 points agree to 1e-9 of the largest magnitude; GMRES takes the same
 number of iterations. The port also evaluates the field from the
 reference's surface solution carried across as numpy arrays
-(mathaudio_tpu_torch.convert). Options of later slices raise a
-ValueError that names the slice.
+(mathaudio_tpu_torch.convert), directly and through the FMM evaluation.
+Options of later slices raise a ValueError that names the slice.
 """
 
 import numpy as np
@@ -135,8 +135,6 @@ def test_gmres_ilu_method_runs_jacobi_gmres_like_the_reference():
 
 
 @pytest.mark.parametrize("option,slice_name", [
-    (dict(assembly=types.BemMethod.SLFMM), "slice 5"),
-    (dict(assembly=types.BemMethod.MLFMM), "slice 5"),
     (dict(method=types.SolverMethod.BICGSTAB), "slice 6"),
     (dict(method=types.SolverMethod.CGS), "slice 6"),
     (dict(method=types.SolverMethod.QMRCGSTAB), "slice 6"),
@@ -149,11 +147,21 @@ def test_unported_options_name_their_slice(kind, option, slice_name):
         solver.BemSolver(types.BemSolverConfig(**option), **CPU64).solve(tp)
 
 
-def test_fmm_field_evaluation_names_its_slice():
+def test_mlfmm_on_a_rigid_problem_names_slice_5b():
+    """The MLFMM tree is slice 5b; a mixed problem routes both FMM
+    assemblies through the SLFMM as the reference does
+    (tests/test_torch_fmm.py holds those against it)."""
     _, tp = _problems("rigid")
-    sol = bem_solution_from_numpy(tp, np.ones(tp.mesh.num_elements), **CPU64)
-    with pytest.raises(ValueError, match="slice 5"):
-        sol.evaluate_pressure(POINTS, method="fmm")
+    with pytest.raises(ValueError, match="slice 5b"):
+        solver.BemSolver(types.BemSolverConfig(assembly=types.BemMethod.MLFMM), **CPU64).solve(tp)
+
+
+def test_fmm_field_evaluation_matches_reference():
+    jp, tp = _problems("rigid")
+    p = np.random.default_rng(9).normal(size=tp.mesh.num_elements) + 0.5j
+    ref = jax_solver.BemSolution(jp, p, {}).evaluate_pressure(POINTS, method="fmm")
+    sol = bem_solution_from_numpy(tp, p, **CPU64)
+    _close(sol.evaluate_pressure(POINTS, method="fmm"), ref, tol=1e-10)
     with pytest.raises(ValueError, match="unknown"):
         sol.evaluate_pressure(POINTS, method="panel")
 

@@ -45,7 +45,9 @@ def test_port_files_found():
                    "wave/analytical/solutions_2d.py", "wave/analytical/solutions_3d.py",
                    "common/__init__.py", "common/geometry.py", "common/config.py",
                    "common/output.py", "utils/__init__.py", "utils/profiling.py", "bem/testing.py",
-                   "apps/roomsim_bem.py", "apps/qa_suite_bem.py"):
+                   "apps/roomsim_bem.py", "apps/qa_suite_bem.py", "bem/fmm.py", "bem/octree.py",
+                   "solvers/operators.py", "solvers/sparse.py", "solvers/preconditioners/ilu.py",
+                   "native/__init__.py"):
         assert f"mathaudio_tpu_torch/{module}" in names
 
 
@@ -65,7 +67,9 @@ def test_import_leaves_jax_unloaded():
         "mathaudio_tpu_torch.optim.peq_fit, mathaudio_tpu_torch.apps.autoeq, "
         "mathaudio_tpu_torch.wave, mathaudio_tpu_torch.common, mathaudio_tpu_torch.utils, "
         "mathaudio_tpu_torch.bem.testing, mathaudio_tpu_torch.apps.roomsim_bem, "
-        "mathaudio_tpu_torch.apps.qa_suite_bem; "
+        "mathaudio_tpu_torch.apps.qa_suite_bem, mathaudio_tpu_torch.bem.fmm, "
+        "mathaudio_tpu_torch.bem.octree, mathaudio_tpu_torch.native, "
+        "mathaudio_tpu_torch.solvers.preconditioners.ilu; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -105,6 +109,19 @@ def test_entry_points_refuse_to_drift_to_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_field(rigid.mesh, np.ones(n, complex), np.array([[0.0, 0.0, 2.0]]), 1.0)
 
+    from mathaudio_tpu_torch.bem import fmm
+    from mathaudio_tpu_torch.bem.postprocess import evaluate_field_fmm
+    from mathaudio_tpu_torch.bem.types import BemMethod, BemSolverConfig
+
+    for call in (lambda: fmm.build_slfmm_system(rigid.mesh, 1.0),
+                 lambda: fmm.build_room_fmm_system(rigid.mesh, 1.0),
+                 lambda: fmm.translation_operator(1.0, np.ones((2, 3)), np.eye(3), 2),
+                 lambda: evaluate_field_fmm(rigid.mesh, np.ones(n, complex),
+                                            np.array([[0.0, 0.0, 2.0]]), 1.0),
+                 lambda: BemSolver(BemSolverConfig(assembly=BemMethod.SLFMM)).solve(rigid)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
     from mathaudio_tpu_torch.apps import autoeq
     from mathaudio_tpu_torch.dsp import Biquad, BiquadFilterType, peq_format_apo, peq_spl
     from mathaudio_tpu_torch.dsp.response import peq_response_db
@@ -136,3 +153,15 @@ def test_entry_points_refuse_to_drift_to_cpu(tmp_path):
     np.savetxt(meas, np.column_stack([np.geomspace(20.0, 20000.0, 8), np.zeros(8)]), delimiter=",")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         autoeq.main([str(meas), "--maxiter", "1"])
+
+
+def test_native_source_stands_alone():
+    """The port's C++ is its own copy: it includes only the standard
+    library, and the loader builds it inside the package."""
+    src = (ROOT / "mathaudio_tpu_torch" / "native" / "kernels.cpp").read_text()
+    includes = [ln.split()[1] for ln in src.splitlines() if ln.startswith("#include")]
+    assert includes and all(inc.startswith("<") for inc in includes), includes
+    from mathaudio_tpu_torch import native
+
+    assert native.BUILD_DIR.parent == ROOT / "mathaudio_tpu_torch" / "native"
+    assert "mathaudio_tpu_torch/native/_build/" in (ROOT / ".gitignore").read_text()

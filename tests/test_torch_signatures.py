@@ -509,3 +509,94 @@ def test_slices_7a_4b_signature_is_the_reference(where, qualname):
     for p, r in zip(kept, ref):
         assert p.kind == r.kind, (p.name, p.kind, r.kind)
         assert _same_default_or_stream(p, r), (p.name, p.default, r.default)
+
+
+# --------------------------------------------------------------------------
+# Slice 5a: the single-level FMM, the octree, the linear operators, the CSR
+# and ELL containers, ILU(0) and its native factorization, the FMM field
+# evaluation and the roomsim FMM tier. The extras are keyword-only ``dtype``
+# and ``device``, each defaulting to None.
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.bem.fmm as jax_fmm  # noqa: E402
+import mathaudio_tpu.bem.octree as jax_octree  # noqa: E402
+import mathaudio_tpu.bem.postprocess as jax_postprocess  # noqa: E402
+import mathaudio_tpu.native as jax_native  # noqa: E402
+import mathaudio_tpu.solvers.operators as jax_operators  # noqa: E402
+import mathaudio_tpu.solvers.preconditioners.ilu as jax_ilu  # noqa: E402
+import mathaudio_tpu.solvers.sparse as jax_sparse  # noqa: E402
+import mathaudio_tpu_torch.bem.fmm as port_fmm  # noqa: E402
+import mathaudio_tpu_torch.bem.octree as port_octree  # noqa: E402
+import mathaudio_tpu_torch.bem.postprocess as port_postprocess  # noqa: E402
+import mathaudio_tpu_torch.native as port_native  # noqa: E402
+import mathaudio_tpu_torch.solvers.operators as port_operators  # noqa: E402
+import mathaudio_tpu_torch.solvers.preconditioners.ilu as port_ilu  # noqa: E402
+import mathaudio_tpu_torch.solvers.sparse as port_sparse  # noqa: E402
+
+SLICE_5A_MODULES = {
+    "bem.fmm": (port_fmm, jax_fmm),
+    "bem.octree": (port_octree, jax_octree),
+    "bem.postprocess": (port_postprocess, jax_postprocess),
+    "solvers.operators": (port_operators, jax_operators),
+    "solvers.sparse": (port_sparse, jax_sparse),
+    "solvers.preconditioners.ilu": (port_ilu, jax_ilu),
+    "native": (port_native, jax_native),
+    "apps.roomsim_bem": (roomsim_bem, jax_roomsim_bem),
+}
+# What slice 5a ports of modules whose other parts come later: the MLFMM
+# (slice 5b), the colored ILU (slice 6), the native PMIS and coloring
+# (slice 6); pytree flattening has no counterpart (the port's operators are
+# plain objects), nor has ``_translation_padded``'s ``as_jax`` (the port
+# returns a tensor on the build's device).
+SLICE_5A_PARTIAL = {
+    "bem.fmm": ("unit_sphere_quadrature", "translation_operator", "translation_operator_pairwise",
+                "SlfmmOperator", "SlfmmOperator.matvec", "gather_form", "sel_form",
+                "build_slfmm_system", "build_slfmm_mixed_system", "build_room_fmm_system",
+                "estimate_num_levels", "near_field_csr", "near_ilu_preconditioner",
+                "ClusterBlockPreconditioner", "ClusterBlockPreconditioner.from_operator",
+                "ClusterBlockPreconditioner.matvec", "_agg_disagg_tensors", "_level_tensors",
+                "_near_blocks", "_near_blocks_mixed", "_room_near_blocks",
+                "_static_hyper_row_sums", "_static_dlp_row_sums", "_stable_far_orders",
+                "_pack_clusters", "_apply_bm_row_factor"),
+    "bem.postprocess": ("evaluate_field_fmm",),
+    "solvers.preconditioners.ilu": ("ilu0_factor", "IluFixedPoint", "IluFixedPoint.from_csr",
+                                    "IluFixedPoint.matvec", "_split_lu"),
+    "native": ("ilu0_factor_inplace",),
+    "apps.roomsim_bem": ("_solve_room_fmm",),
+}
+SLICE_5A_FUNCTIONS = [
+    (where, q) for where, (_, ref) in SLICE_5A_MODULES.items()
+    for q in SLICE_5A_PARTIAL.get(where, [n for n in _public_callables(ref)
+                                          if not n.endswith(("tree_flatten", "tree_unflatten"))])
+]
+
+
+def test_slice_5a_covers_its_modules():
+    assert len(SLICE_5A_FUNCTIONS) >= 60
+    for where, qualname in (("bem.octree", "Octree.interaction_lists"),
+                            ("solvers.sparse", "CsrMatrix.to_ell"),
+                            ("solvers.sparse", "EllMatrix.operator"),
+                            ("solvers.operators", "EllOperator.rmatvec"),
+                            ("solvers.operators", "as_matvec")):
+        assert (where, qualname) in SLICE_5A_FUNCTIONS
+    for where, (port_mod, ref_mod) in SLICE_5A_MODULES.items():
+        names = SLICE_5A_PARTIAL.get(where, _public_callables(ref_mod))
+        assert all(hasattr(port_mod, q.split(".")[0]) for q in names)
+
+
+@pytest.mark.parametrize("where,qualname", SLICE_5A_FUNCTIONS,
+                         ids=[f"{w}:{q}" for w, q in SLICE_5A_FUNCTIONS])
+def test_slice_5a_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE_5A_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    ref_names = {r.name for r in ref}
+    extras = [p for p in port if p.name in ("dtype", "device") and p.name not in ref_names]
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY for p in extras), extras
+    if not qualname.startswith("_"):  # private helpers take them required
+        assert all(p.default is None for p in extras), extras
