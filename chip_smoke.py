@@ -52,6 +52,16 @@ N = 10440 with the near-field ILU(0)) at 40 and 500 Hz (of its 100
 frequencies: the one cut), and the FMM field evaluation at path 3's 8192
 points.
 
+Path 9 is the multilevel FMM (phase 16): bench.py's mlfmm tier at its full
+shape (the N=20480 icosphere, k = 16, CBIE, the MLFMM tree with
+max_per_leaf 32, a float64 build on the card with tau = 1e4 and float32
+aggregation phases, cast to complex64 in gather form,
+ClusterBlockPreconditioner, the cluster-major GMRES restart 36 tol 1e-5 at
+most 200 iterations, a plane wave along +z), its Burton–Miller solve (beta
+= i/k, unpreconditioned), the tree and the two-level MLFMM against the dense
+matrices at N=5120, k = 2, the QA suite's three mlfmm cases, and the
+mixed-BC tree on a pulsating sphere at N=20480.
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -165,7 +175,26 @@ Phases, each fatal on failure:
    within 0.1 dB of the dense LU on the card, the FMM matvec at 40 Hz
    within 1e-3 of the dense complex64 matrix's (seeded x), per frequency
    converged and iterations printed, build / ILU / GMRES seconds printed;
-   the phase prints its own seconds.
+   the phase prints its own seconds;
+16. path 9, the MLFMM (no hand-written kernel of its own; its dense checks
+   launch ``double_layer`` and ``burton_miller``, counted): TF32 off
+   asserted; (a) the complex64 matvec in gather and in selection form
+   within 1e-3 of the float64 one (seeded x), the cluster-major GMRES
+   converged, Mie error within 1e-3 of the float64 solve's, iterations
+   within 2 of it; build seconds by stage, both matvecs' ms from Python
+   and from a CUDA graph beside their byte bounds and device launches,
+   solve ms (median of 3 after a warm run), solves/s, peak memory, and a
+   profiled solve's device time and idle share; (b) Burton–Miller
+   converged with its rel L2 against Mie <= 1e-2; (c) at N=5120, k = 2 the
+   tree's, the two-level MLFMM's and the Burton–Miller tree's matvecs
+   within 0.5 of the dense matrices' (float32, one kernel launch each;
+   ``double_layer`` there held against its twin and timed), the tree's
+   cluster-block GMRES iterations under 2x the SLFMM's; (d) the QA mlfmm
+   cases in float64 (the recorded run's precision) within 2% + 1e-4 of the
+   recorded rel_l2, and in float32 (the app's default here) printed beside
+   and held to the QA threshold 0.5; (e) the mixed-BC tree (float64, tol
+   1e-7) converged with its surface rel L2 against the closed form
+   <= 0.05; the phase prints its own seconds.
 With ``--profile``, once every phase has passed, one more run of each
 path (for path 5 a fit at maxiter 100) runs under torch.profiler and its
 device time is printed by kernel group and kernel, with the device's idle
@@ -1595,6 +1624,7 @@ TWIN_ROWS = 256  # the twin's rows where the whole shape's twin would not fit
 # plus QA_ABS.
 QA_SUMMARY = REPO / "qa_bem_results" / "summary.json"
 QA_REL, QA_ABS = 0.02, 1e-4
+QA_THRESHOLD = 0.5  # apps/qa_suite_bem.py main's --threshold default
 QA_CASES = {
     2: [("sphere_case", ka, {}) for ka in (0.1, 0.5, 1.0)]
        + [("sphere_case", 0.5, {"solver": s}) for s in ("lu", "gmres")]
@@ -1972,8 +2002,7 @@ def fmm_matvec_record(label, op, x):
     """Time ``op.matvec(x)`` from Python and from a CUDA graph beside the
     byte bound of the tensors it reads (each once) and the vector it
     writes: a dict for the log and PERF.md."""
-    tensors = [t for t in op.data if t is not None]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors) + 2 * x.numel() * x.element_size()
+    nbytes = fmm_data_bytes(op.data) + 2 * x.numel() * x.element_size()
     rec = dict(ms=time_ms(lambda: op.matvec(x)), graph_ms=graph_ms(lambda: op.matvec(x)),
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, gbytes=nbytes / 1e9,
                launches=device_launches(lambda: op.matvec(x)))
@@ -2196,6 +2225,327 @@ def fmm_phase(ops, dev, counters, subdiv=FMM_SUBDIV, room=ROOMSIM_WIDE, room_sol
     return launches, runs, (mv_a, mv_c)
 
 
+# Phase 16: the multilevel FMM (slice 5b) on the card. (a) is bench.py's
+# mlfmm tier at its full shape (bench.py:523-661): the N = 20480 icosphere
+# (subdivision 5), k = 16, CBIE, the MLFMM tree with max_per_leaf 32,
+# stability_tau 1e4 and float32 aggregation phases, built in float64 and cast
+# to complex64 in gather form, ClusterBlockPreconditioner, the cluster-major
+# GMRES (restart 36, tol 1e-5, at most 200 iterations), a plane wave along +z;
+# the selection form's matvec timed beside the gather form's. (b) Burton–Miller
+# beta = i/k at the same tier, unpreconditioned, restart 80, at most 400
+# iterations (bench.py:680-731, its gate). (c) examples/mlfmm_large_solve.py
+# stages 1-2 at N = 5120, k = 2: the tree matvec (and the two-level MLFMM's)
+# against the dense collocation matrix, the Burton–Miller tree against the
+# dense Burton–Miller matrix, and the GMRES iterations of the tree against the
+# SLFMM's, both cluster-block preconditioned. (d) the QA suite's three mlfmm
+# cases. (e) the example's stage 4: the mixed-BC tree on a pulsating sphere at
+# N = 20480, ka = 1.3, float64 end to end.
+MLFMM_SUBDIV, MLFMM_K = 5, 16.0
+MLFMM_BUILD = dict(max_per_leaf=32, stability_tau=1e4, agg_phase_f32=True)
+MLFMM_GMRES = dict(max_iterations=200, tolerance=1e-5, restart=36)
+MLFMM_BM_GMRES, MLFMM_BM_MIE = dict(max_iterations=400, tolerance=1e-5, restart=80), 1e-2
+MLFMM_DENSE_SUBDIV, MLFMM_DENSE_K = 4, 2.0
+MLFMM_DENSE_GMRES = dict(max_iterations=400, tolerance=1e-6, restart=60)
+MLFMM_DENSE_TOL, MLFMM_ITER_RATIO = 0.5, 2.0  # examples/mlfmm_large_solve.py's gates
+MLFMM_QA_CASES = ((0.5, 2), (2.0, 3), (5.0, 3))  # apps/qa_suite_bem.py main's mlfmm cases
+MLFMM_MIXED_KA, MLFMM_MIXED_TOL = 1.3, 0.05
+MLFMM_MIXED_GMRES = dict(max_iterations=400, tolerance=1e-7, restart=60)
+# Build stages: functions of bem/fmm.py whose synchronised wall time each
+# stage sums ("skeleton" includes the screen, the translations and the
+# interpolations, which are reported on their own).
+MLFMM_STAGES = {"skeleton": ("_tree_skeleton",), "screen": ("_stable_far_orders",),
+                "translations": ("_translation_padded",),
+                "interpolations": ("sphere_interp_matrix",),
+                "aggregation": ("_agg_disagg_tensors", "_apply_bm_row_factor"),
+                "near blocks": ("_near_blocks", "_static_dlp_row_sums")}
+
+
+def fmm_data_bytes(data):
+    """Bytes of the tensors an FMM operator's matvec reads, each once: every
+    tensor of its data, levels included, but a level's pair gather table
+    where the level reduces through its selection matrix instead."""
+    total = 0
+    for name, v in zip(data._fields, data):
+        if v is None:
+            continue
+        if hasattr(v, "_fields"):
+            total += fmm_data_bytes(v)
+        elif isinstance(v, tuple):
+            total += sum(fmm_data_bytes(lv) for lv in v)
+        elif not (name == "trans_of_tgt" and getattr(data, "sel", None) is not None):
+            total += v.numel() * v.element_size()
+    return total
+
+
+def _tree_split(calls, total):
+    """The tree build's seconds split: octree and lists, screen, translations,
+    interpolations, aggregation, near blocks and row sums, the rest."""
+    sums = {g: sum(v) for g, v in calls.items()}
+    octree = sums["skeleton"] - sums["screen"] - sums["translations"] - sums["interpolations"]
+    rest = total - sums["skeleton"] - sums["aggregation"] - sums["near blocks"]
+    return (f"octree, lists, shifts and transfers {octree:.3f} s, screen {sums['screen']:.3f} s, "
+            f"translations {sums['translations']:.3f} s, interpolations "
+            f"{sums['interpolations']:.3f} s, aggregation {sums['aggregation']:.3f} s, near blocks "
+            f"and row sums {sums['near blocks']:.3f} s, rest {rest:.3f} s")
+
+
+def _tree_shape(op):
+    """Per level: nodes C, directions Q, far pairs translated there."""
+    return "; ".join(f"level {i}: C = {lv.parent.shape[0]}, Q = {lv.trans_op.shape[1]}, "
+                     f"{lv.trans_op.shape[0]} pairs" for i, lv in enumerate(op.data.levels))
+
+
+def mlfmm_phase(ops, dev, counters, subdiv=MLFMM_SUBDIV, k=MLFMM_K, dense_subdiv=MLFMM_DENSE_SUBDIV,
+                qa_cases=MLFMM_QA_CASES):
+    """Phase 16: the MLFMM on the card, (a)-(e) above. Returns ({variant:
+    launches} of its counted runs, the double_layer record of (c),
+    callables for the profiler, the matvec records)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.apps import qa_suite_bem as qa
+    from mathaudio_tpu_torch.bem import assembly, fmm, sweep
+    from mathaudio_tpu_torch.bem.fmm_chip import fmm_chip_solve_cm_fn
+    from mathaudio_tpu_torch.bem.incident import plane_wave
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.bem.types import BoundaryCondition
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
+    from mathaudio_tpu_torch.wave.analytical import sphere_scattering_3d
+    from mathaudio_tpu_torch.wave.analytical.solutions_3d import pulsating_sphere_3d
+    from mathaudio_tpu_torch.xtypes import full_f32_matmul
+
+    t_phase = time.perf_counter()
+    c64, f64 = torch.complex64, torch.float64
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    log(f"mlfmm: TF32 matmul allowed {tf32[0]}, float32 matmul precision {tf32[1]!r}")
+    if tf32 != (False, "highest"):
+        raise AssertionError(f"the MLFMM needs true float32 products, not TF32: {tf32}")
+    inc = plane_wave((0.0, 0.0, 1.0))
+    rng = np.random.default_rng(0)
+
+    def surface(mesh, beta):
+        """(rhs in float64 on the card, Mie surface pressure) for ``mesh``."""
+        centers = torch.tensor(mesh.centers, dtype=f64, device=dev)
+        normals = torch.tensor(mesh.normals, dtype=f64, device=dev)
+        rhs = inc.pressure(centers, k) - beta * inc.normal_derivative(centers, normals, k)
+        c = mesh.centers
+        theta = np.arccos(np.clip(c[:, 2] / np.linalg.norm(c, axis=1), -1, 1))
+        mie = sphere_scattering_3d(k, 1.0, max(60, int(2 * k) + 20),
+                                   [float(np.linalg.norm(c, axis=1).mean())], theta, dtype=f64,
+                                   device=dev).pressure.reshape(-1).cpu().numpy()
+        return rhs, mie
+
+    # (a) bench.py's mlfmm tier
+    mesh = icosphere(1.0, subdiv)
+    n = mesh.num_elements
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stages, restore = _timed_functions(fmm, MLFMM_STAGES)  # {stage: [seconds]}
+    try:
+        t0 = time.perf_counter()
+        op64 = fmm.build_mlfmm_tree_system(mesh, k, **MLFMM_BUILD, dtype=f64, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    finally:
+        restore()
+    t0 = time.perf_counter()
+    pre64 = fmm.ClusterBlockPreconditioner.from_operator(op64)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    d = op64.data
+    log(f"mlfmm (a) N = {n}, k = {k:g}, CBIE: float64 build {t_build:.3f} s on the card "
+        f"({_tree_split(stages, t_build)}), ClusterBlockPreconditioner {t_pre:.3f} s; leaves C = "
+        f"{d.clusters.shape[0]}, m = {d.clusters.shape[1]}, Q = {d.quad_w.shape[0]}, near pairs "
+        f"{d.near_b.shape[0]}; {_tree_shape(op64)}")
+    t0 = time.perf_counter()
+    op64g = fmm.gather_form(op64)
+    op32 = fmm.gather_form(op64.to(c64))
+    sel32 = fmm.sel_form(op64.to(c64))
+    pre32 = pre64.to(c64)
+    torch.cuda.synchronize()
+    log(f"mlfmm (a) gather and selection forms, complex64 casts: {time.perf_counter() - t0:.3f} s")
+    x = torch.as_tensor(rng.standard_normal(n) + 1j * rng.standard_normal(n), device=dev)
+    y64 = op64g.matvec(x).cpu().numpy()
+    records = {}
+    for form, op in (("gather", op32), ("sel", sel32)):
+        err = rel_l2(op.matvec(x.to(c64)), y64)
+        log(f"mlfmm (a) complex64 {form} matvec vs the float64 one on the card: rel {err:.3e} "
+            f"(limit {FMM_MATVEC_TOL:g})")
+        if not err <= FMM_MATVEC_TOL:
+            raise AssertionError(f"mlfmm (a): complex64 {form} matvec off by {err:.3e}")
+        records[form] = fmm_matvec_record(f"(a) N = {n} complex64 {form}", op, x.to(c64))
+    del sel32
+    torch.cuda.empty_cache()
+
+    rhs, mie = surface(mesh, 0.0)
+    solve = fmm_chip_solve_cm_fn(KrylovConfig(**MLFMM_GMRES))
+    x64, it64, conv64 = solve(op64g, pre64, rhs)
+
+    def solve32():
+        return solve(op32, pre32, rhs.to(c64))
+
+    peak = torch.cuda.max_memory_allocated(dev)  # the build's and the float64 solve's
+    (x32, it32, conv32), launches_a = counted("(a) complex64 cluster-major solve", counters, solve32,
+                                              dev, path="mlfmm")
+    t_solve = median_ms(solve32)
+    peak = max(peak, torch.cuda.max_memory_allocated(dev)) / 2**30
+    it64, it32 = int(it64), int(it32)
+    mie64, mie32 = rel_l2(x64, mie), rel_l2(x32, mie)
+    log(f"mlfmm (a) cluster-major GMRES: float64 {it64} iterations (converged {bool(conv64)}), "
+        f"complex64 {it32} (converged {bool(conv32)}); surface pressure vs Mie rel L2 float64 "
+        f"{mie64:.4e}, complex64 {mie32:.4e} (diff limit {FMM_MIE_TOL:g}); complex64 solve "
+        f"{t_solve:.2f} ms (median of 3 after a warm run), {1e3 / t_solve:.3f} solves/s; peak "
+        f"memory {peak:.2f} GiB; hand-written kernel launches {launches_a}")
+    if not (bool(conv32) and abs(mie32 - mie64) <= FMM_MIE_TOL and abs(it32 - it64) <= FMM_ITER_TOL):
+        raise AssertionError(f"mlfmm (a): complex64 solve converged {bool(conv32)}, Mie "
+                             f"{mie32:.4e} vs {mie64:.4e}, iterations {it32} vs {it64}")
+    profile_run("mlfmm (a) complex64 cluster-major solve", solve32, None)
+    del op64, op64g, op32, pre64, pre32, x64, x32
+    torch.cuda.empty_cache()
+
+    # (b) Burton-Miller beta = i/k at the same tier, unpreconditioned
+    beta = 1j / k
+    t0 = time.perf_counter()
+    op_bm = fmm.build_mlfmm_tree_system(mesh, k, beta=beta, **MLFMM_BUILD, dtype=f64, device=dev)
+    op_bm = fmm.gather_form(op_bm.to(c64))
+    torch.cuda.synchronize()
+    t_bm_build = time.perf_counter() - t0
+    rhs_bm, _ = surface(mesh, beta)
+    config_bm = KrylovConfig(**MLFMM_BM_GMRES)
+
+    def solve_bm():
+        return gmres(op_bm, rhs_bm.to(c64), config=config_bm)
+
+    sol_bm = solve_bm()
+    t_bm = median_ms(solve_bm, repeats=1)
+    mie_bm = rel_l2(sol_bm.x, mie)
+    log(f"mlfmm (b) Burton-Miller beta = i/k: build {t_bm_build:.3f} s, GMRES (unpreconditioned, "
+        f"restart 80) {int(sol_bm.iterations)} iterations, converged {bool(sol_bm.converged)}, "
+        f"{t_bm:.1f} ms; surface pressure vs Mie rel L2 {mie_bm:.4e} (limit {MLFMM_BM_MIE:g})")
+    if not (bool(sol_bm.converged) and mie_bm <= MLFMM_BM_MIE):
+        raise AssertionError(f"mlfmm (b): converged {bool(sol_bm.converged)}, Mie {mie_bm:.4e}")
+    del op_bm, sol_bm
+    torch.cuda.empty_cache()
+
+    # (c) accuracy against the dense matrices at N = 5120, k = 2
+    kd = MLFMM_DENSE_K
+    mesh4 = icosphere(1.0, dense_subdiv)
+    n4 = mesh4.num_elements
+    a_dense, launches_c = counted(f"(c) dense collocation matrix N = {n4}", counters, lambda: (
+        assembly.assemble_collocation_matrix(mesh4, kd, dtype=torch.float32, device=dev)), dev,
+        path="mlfmm")
+    need_launches("mlfmm (c)", launches_c, ("double_layer",))
+    x4 = torch.as_tensor(rng.standard_normal(n4) + 1j * rng.standard_normal(n4), device=dev)
+    with full_f32_matmul():
+        want = (a_dense @ x4.to(c64)).cpu().numpy()
+    del a_dense
+    ops_c = {}
+    for label, build in (
+            ("tree", lambda: fmm.build_mlfmm_tree_system(mesh4, kd, dtype=f64, device=dev)),
+            ("two-level", lambda: fmm.build_mlfmm_system(mesh4, kd, dtype=f64, device=dev))):
+        t0 = time.perf_counter()
+        op = fmm.gather_form(build())
+        torch.cuda.synchronize()
+        err = rel_l2(op.matvec(x4), want)
+        log(f"mlfmm (c) {label} matvec vs the dense collocation matrix at N = {n4}, k = {kd:g}: rel "
+            f"{err:.3e} (limit {MLFMM_DENSE_TOL:g}); float64 build {time.perf_counter() - t0:.3f} s")
+        if not err < MLFMM_DENSE_TOL:
+            raise AssertionError(f"mlfmm (c): {label} matvec off the dense one by {err:.3e}")
+        ops_c[label] = op
+    beta4 = 1j / kd
+    a_bm, launches_bm = counted(f"(c) dense Burton-Miller matrix N = {n4}", counters, lambda: (
+        assembly.assemble_burton_miller(mesh4, kd, beta4, dtype=torch.float32, device=dev)), dev,
+        path="mlfmm")
+    need_launches("mlfmm (c)", launches_bm, ("burton_miller",))
+    with full_f32_matmul():
+        want_bm = (a_bm @ x4.to(c64)).cpu().numpy()
+    del a_bm
+    op_tbm = fmm.gather_form(fmm.build_mlfmm_tree_system(mesh4, kd, beta=beta4, dtype=f64,
+                                                         device=dev))
+    err = rel_l2(op_tbm.matvec(x4), want_bm)
+    log(f"mlfmm (c) Burton-Miller (beta = i/k) tree matvec vs the dense Burton-Miller matrix: rel "
+        f"{err:.3e} (limit {MLFMM_DENSE_TOL:g})")
+    if not err < MLFMM_DENSE_TOL:
+        raise AssertionError(f"mlfmm (c): Burton-Miller tree matvec off the dense one by {err:.3e}")
+    del op_tbm
+    its = {}
+    rhs4 = inc.pressure(torch.tensor(mesh4.centers, dtype=f64, device=dev), kd)
+    for label, op in (("slfmm", fmm.gather_form(fmm.build_slfmm_system(mesh4, kd, dtype=f64,
+                                                                       device=dev))),
+                      ("mlfmm tree", ops_c["tree"])):
+        sol = gmres(op, rhs4, config=KrylovConfig(**MLFMM_DENSE_GMRES),
+                    preconditioner=fmm.ClusterBlockPreconditioner.from_operator(op))
+        its[label] = int(sol.iterations)
+        log(f"mlfmm (c) {label} GMRES at N = {n4} (cluster-block preconditioner, tol 1e-6): "
+            f"{its[label]} iterations, converged {bool(sol.converged)}")
+        if not bool(sol.converged):
+            raise AssertionError(f"mlfmm (c): the {label} GMRES did not converge")
+    ratio = its["mlfmm tree"] / max(its["slfmm"], 1)
+    log(f"mlfmm (c) iteration ratio tree / SLFMM {ratio:.2f} (limit {MLFMM_ITER_RATIO:g})")
+    if not ratio < MLFMM_ITER_RATIO:
+        raise AssertionError(f"mlfmm (c): the tree needs {ratio:.2f}x the SLFMM's iterations")
+    del ops_c
+    torch.cuda.empty_cache()
+    twin = twin_pairwise(ops)
+    st = sweep.sweep_statics(mesh4, dtype=torch.float32, device=dev)
+    ks = torch.tensor([kd], dtype=torch.float32, device=dev)
+    dl_record = bem_kernel_record(f"f32 {n4} x {n4} F=1", ops, twin, "double_layer",
+                                  (st.centers, None, st.qp, st.normals, st.qw, ks), True)
+    dl_record["launches"] = launches_c.get("double_layer", 0)
+    launches = {v: launches_c.get(v, 0) + launches_bm.get(v, 0)
+                for v in set(launches_c) | set(launches_bm)}
+
+    # (d) the QA suite's mlfmm cases: in float64, the recorded run's precision
+    # (the gate), and in float32, the app's default on the card (reported;
+    # its screen, tau 1e4, truncates the tree's pair series)
+    with open(QA_SUMMARY) as fh:
+        recorded = {cs["name"]: cs["rel_l2"] for cs in json.load(fh)["cases"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ka, sub in qa_cases:
+            for dtype in (torch.float64, torch.float32):
+                r = qa.sphere_case(ka, sub, tmp, 0, "mlfmm", dtype=dtype, device=dev)
+                got, want_qa = r.metrics.l2_relative, recorded[r.name]
+                limit = QA_REL * want_qa + QA_ABS
+                log(f"mlfmm (d) qa {r.name} {str(dtype)[6:]} (N = {r.metadata.num_dofs}, "
+                    f"{r.metadata.solver}): rel_l2 {got:.6e}, recorded {want_qa:.6e}, diff "
+                    f"{abs(got - want_qa):.3e} (limit {limit:.3e} in float64; float32 reported, "
+                    f"QA threshold {QA_THRESHOLD:g}), solve {r.metadata.wall_time_s * 1e3:.1f} ms")
+                if dtype == torch.float64 and not abs(got - want_qa) <= limit:
+                    raise AssertionError(f"mlfmm (d) qa {r.name}: rel_l2 {got:.6e} vs the recorded "
+                                         f"{want_qa:.6e}")
+                if not got <= QA_THRESHOLD:
+                    raise AssertionError(f"mlfmm (d) qa {r.name} {dtype}: rel_l2 {got:.6e} fails "
+                                         f"the QA suite's threshold")
+
+    # (e) the mixed-BC tree: a pulsating sphere, float64 end to end
+    ka_m = MLFMM_MIXED_KA
+    bc = BoundaryCondition(types=np.zeros(n, np.int32), values=np.full(n, 1.0 + 0.0j))
+    t0 = time.perf_counter()
+    op_m, rhs_m, up = fmm.build_mlfmm_tree_mixed_system(mesh, ka_m, bc, dtype=f64, device=dev)
+    op_m = fmm.gather_form(op_m)
+    torch.cuda.synchronize()
+    t_m_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol_m = gmres(op_m, rhs_m, config=KrylovConfig(**MLFMM_MIXED_GMRES))
+    torch.cuda.synchronize()
+    t_m = time.perf_counter() - t0
+    exact = pulsating_sphere_3d(ka_m, 1.0, mesh.centers, velocity=1.0, dtype=f64,
+                                device=dev).pressure.cpu().numpy()
+    err_m = rel_l2(sol_m.x, exact)
+    log(f"mlfmm (e) mixed tree, pulsating sphere N = {n}, ka = {ka_m:g}: float64 build "
+        f"{t_m_build:.3f} s ({_tree_shape(op_m)}), GMRES {int(sol_m.iterations)} iterations, "
+        f"converged {bool(sol_m.converged)}, {t_m:.3f} s; surface rel L2 {err_m:.3e} (limit "
+        f"{MLFMM_MIXED_TOL:g})")
+    if not (bool(up.all()) and bool(sol_m.converged) and err_m <= MLFMM_MIXED_TOL):
+        raise AssertionError(f"mlfmm (e): converged {bool(sol_m.converged)}, rel L2 {err_m:.3e}")
+    del op_m, sol_m
+    torch.cuda.empty_cache()
+    log(f"mlfmm: phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, dl_record, records
+
+
 def main() -> int:
     import argparse
 
@@ -2361,6 +2711,13 @@ def main() -> int:
     fmm_launches, fmm_runs, _ = fmm_phase(bem_assembly, dev, (dia, bem_assembly))
     app_runs.update(fmm_runs)
     for variant, count in fmm_launches.items():
+        if variant in bem_records:
+            bem_records[variant]["launches"] += count
+
+    # 16. slice 5b: the MLFMM on the card
+    mlfmm_launches, dl_record, _ = mlfmm_phase(bem_assembly, dev, (dia, bem_assembly))
+    bem_records["double_layer"].setdefault("other_shapes", []).append(dl_record)
+    for variant, count in mlfmm_launches.items():
         if variant in bem_records:
             bem_records[variant]["launches"] += count
 

@@ -8,10 +8,8 @@ mixed-BC pulsating sphere, each writing a ValidationResult JSON, then
 The solves run on the GPU in float32 by default, on the CPU in float64
 with ``--cpu``; every closed form is evaluated in float64 whatever the
 solve's precision (the reference's recorded run, ``qa_bem_results/``, is
-x64 throughout). The matrix's ``slfmm`` cases run BemSolver's SLFMM path;
-its ``mlfmm`` cases need the MLFMM tree, slice 5b of the port, and raise a
-ValueError naming it, so the full list stops there until then; ``--fast``
-runs no FMM case.
+x64 throughout). The matrix's ``slfmm`` and ``mlfmm`` cases run BemSolver's
+SLFMM and MLFMM tree paths; ``--fast`` runs no FMM case.
 
     python -m mathaudio_tpu_torch.apps.qa_suite_bem --fast [--cpu] -o out_dir
 """
@@ -216,7 +214,7 @@ def main(argv=None):
         results.append(sphere_case(ka, sub, args.out_dir, **where))
     if not args.fast:
         # solver x regime matrix: every solver tier at a Rayleigh, Mie and
-        # geometric wavenumber (mlfmm raises until slice 5b)
+        # geometric wavenumber
         for solver in ["lu", "gmres", "slfmm", "mlfmm"]:
             for ka, sub in [(0.5, 2), (2.0, 3), (5.0, 3)]:
                 results.append(sphere_case(ka, sub, args.out_dir, solver=solver, **where))

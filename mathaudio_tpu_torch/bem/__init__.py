@@ -3,10 +3,11 @@
 Constant-element collocation as batched pairwise kernels (hand-written
 CUDA on the GPU, ops/bem_assembly.py), Burton–Miller coupling, dense LU
 or GMRES solves, Kirchhoff–Helmholtz field evaluation as a second
-pairwise kernel, the interior room BEM, and the single-level FMM
-(bem/fmm.py) with its near-field preconditioners. The multilevel FMM is
-slice 5b of the port; the reference's ``fmm_chip`` names (re/im planes for
-a transport without complex numbers) have no counterpart.
+pairwise kernel, the interior room BEM, and the fast multipole methods
+(bem/fmm.py: the single-level FMM, the two-level MLFMM and the MLFMM tree)
+with their near-field preconditioners and the cluster-major solve
+(bem/fmm_chip.py). The reference's other ``fmm_chip`` names (re/im planes
+for a transport without complex numbers) have no counterpart.
 """
 
 from mathaudio_tpu_torch.bem.types import (  # noqa: F401
@@ -34,6 +35,9 @@ from mathaudio_tpu_torch.bem.postprocess import (  # noqa: F401
 )
 from mathaudio_tpu_torch.bem.fmm import (  # noqa: F401
     ClusterBlockPreconditioner,
+    build_mlfmm_system,
+    build_mlfmm_tree_mixed_system,
+    build_mlfmm_tree_system,
     build_room_fmm_system,
     build_slfmm_mixed_system,
     build_slfmm_system,
@@ -41,3 +45,4 @@ from mathaudio_tpu_torch.bem.fmm import (  # noqa: F401
     sel_form,
     near_ilu_preconditioner,
 )
+from mathaudio_tpu_torch.bem.fmm_chip import fmm_chip_solve_cm_fn  # noqa: F401

@@ -1,6 +1,6 @@
-"""Single-level fast multipole method for the Helmholtz double layer
-(counterpart of the single-level part of mathaudio_tpu/bem/fmm.py;
-math-bem/src/core/assembly/slfmm.rs: A = N + S.D.T decomposition).
+"""Fast multipole methods for the Helmholtz double layer (counterpart of
+mathaudio_tpu/bem/fmm.py; math-bem/src/core/assembly/slfmm.rs: A = N +
+S.D.T decomposition; mlfmm.rs: the multilevel upward/downward passes).
 
 High-frequency diagonal (Rokhlin) form on a unit-sphere direction
 quadrature: for |x - c_b|, |y - c_a| < |D|/sep, D = c_b - c_a,
@@ -38,16 +38,27 @@ Differences from the reference, all in what a host-CPU JAX build needed:
   the Bessel recurrence's start depends on it;
 - ``ClusterBlockPreconditioner`` holds complex (C, m, m) inverses, the
   same operator as the reference's real 2m x 2m embedding;
-- no accelerator switch by environment variable: ``device`` says where.
+- no accelerator switch by environment variable: ``device`` says where;
+- the spherical harmonics of the MLFMM tree's grid interpolations come from
+  an orthonormal Legendre recurrence in float64 numpy (``_sph_harm_matrix``),
+  not from ``scipy.special.sph_harm_y`` (scipy >= 1.15 only).
 
-The multilevel FMM (``build_mlfmm_system``, the MLFMM tree, ``sel_form``'s
-tree branch) is slice 5b of the port.
+Two multilevel forms follow the single level. ``build_mlfmm_system`` is the
+flattened two-level FMM (a leaf and a coarse level, each aggregating from
+the elements directly). ``build_mlfmm_tree_system`` and
+``build_mlfmm_tree_mixed_system`` build the hierarchical tree: leaf
+aggregation, M2M (grid interpolation, then a diagonal shift) up to the
+coarsest translating depth, one translation per far pair at the coarsest
+depth whose ancestors are far, L2L down and leaf disaggregation. Its
+per-level pair reduction runs as a scatter (``index_add_``), a gather
+(``gather_form``, what the GPU runs) or a 0/1 selection GEMM
+(``sel_form``, timed on the GPU beside the gather form; no path selects it).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,12 +77,15 @@ from mathaudio_tpu_torch.xtypes import (
     complex_dtype_for,
     default_float,
     full_f32_matmul,
+    real_dtype_for,
     resolve_device,
     to_precision,
 )
 
-# Stability headroom of the field evaluation's screen (and, in slice 5b,
-# of the MLFMM tree build functions).
+# Max tolerated magnitude of a translation-series term (2l+1)|h_l(kD)|:
+# beyond this the finite sphere quadrature amplifies band-limit leakage
+# into O(1) errors. The default of the MLFMM tree builds and of the field
+# evaluation's screen.
 _MLFMM_STABILITY_TAU = 1.0e8
 
 
@@ -256,6 +270,28 @@ class SlfmmData(NamedTuple):
     near_of_tgt: Optional[torch.Tensor] = None  # (C, Kn) pair ids, pad = P
     elem_pos: Optional[torch.Tensor] = None  # (N,) flat index into (C*m)
 
+    def to(self, dtype=None, device=None) -> "SlfmmData":
+        """A copy at the precision of the complex ``dtype`` on ``device``
+        (``_fields_to``)."""
+        return _fields_to(self, dtype, device)
+
+
+def _fields_to(data, dtype=None, device=None):
+    """A copy of a NamedTuple of tensors at the precision of the complex
+    ``dtype`` (complex tensors in ``dtype``, real ones in its real
+    counterpart, index tensors unchanged) on ``device``; None keeps either.
+    Nested NamedTuples and tuples of them are converted alike."""
+    def one(v):
+        if v is None:
+            return None
+        if isinstance(v, torch.Tensor):
+            return to_precision(v, dtype, device)
+        if hasattr(v, "_fields"):
+            return _fields_to(v, dtype, device)
+        return tuple(one(u) for u in v)
+
+    return type(data)(*(one(v) for v in data))
+
 
 def _pad_by_target(tgt: np.ndarray, n_targets: int, pad_value: int):
     """(C, K) table of item indices grouped by target (stable order),
@@ -289,20 +325,45 @@ def _host(t) -> np.ndarray:
 
 
 def gather_form(op):
-    """A copy of an SLFMM operator whose matvec accumulates through padded
+    """A copy of an FMM operator whose matvec accumulates through padded
     target-side GATHER tables instead of scatter-adds: a gather and a row
     reduction per target, the same sums in pair order, deterministic on
-    the GPU. (The MLFMM operators come with slice 5b.)"""
+    the GPU. Accepts SlfmmOperator / MlfmmTreeOperator / MlfmmOperator."""
+    if isinstance(op, MlfmmTreeOperator):
+        return MlfmmTreeOperator(_tree_gather_form(op.data), op.n)
+    if isinstance(op, MlfmmOperator):
+        d = op.data
+        coarse_pos = _elem_positions(_host(d.coarse_clusters), _host(d.coarse_mask))
+        return MlfmmOperator(d._replace(
+            leaf=_slfmm_gather_form(d.leaf),
+            coarse_elem_pos=torch.as_tensor(coarse_pos, dtype=torch.int64,
+                                            device=d.coarse_clusters.device)), op.n)
     if isinstance(op, SlfmmOperator):
         return SlfmmOperator(_slfmm_gather_form(op.data), op.n)
     raise TypeError(f"unsupported operator {type(op).__name__}")
 
 
 def sel_form(op):
-    """The reference's gather_form plus per-level selection matrices of
-    the MLFMM tree; for an SLFMM operator it is ``gather_form`` (the tree
-    branch comes with slice 5b)."""
-    return gather_form(op)
+    """``gather_form`` plus per-level 0/1 pair->target selection matrices,
+    so the tree's per-level translation reduction runs as one GEMM per level
+    (``MlfmmLevel.sel``, in the real precision of the level's translations)
+    instead of the (C, K, Q) gather and sum; numerics are the same up to the
+    sum's reassociation. Memory: sum over levels of C_l * P_l reals (~600 MB
+    in float32 at bench.py's N = 20480 tier). Only the tree has per-level
+    reductions: any other operator gets ``gather_form``."""
+    if not isinstance(op, MlfmmTreeOperator):
+        return gather_form(op)
+    d = _tree_gather_form(op.data)
+    levels = []
+    for lv in d.levels:
+        n_pairs = int(lv.trans_tgt.shape[0])
+        if n_pairs:
+            sel = torch.zeros((lv.parent.shape[0], n_pairs), device=lv.trans_op.device,
+                              dtype=real_dtype_for(lv.trans_op.dtype))
+            sel[lv.trans_tgt, torch.arange(n_pairs, device=sel.device)] = 1.0
+            lv = lv._replace(sel=sel)
+        levels.append(lv)
+    return MlfmmTreeOperator(d._replace(levels=tuple(levels)), op.n)
 
 
 def execution_tau(dtype) -> float:
@@ -318,9 +379,17 @@ def execution_form(op, dtype):
     operator in gather form on the GPU (scatter-adds there are atomics in
     an order that varies from run to run)."""
     op = op.to(complex_dtype_for(dtype))
-    if isinstance(op, SlfmmOperator) and op.data.diag_add.is_cuda:
+    if (isinstance(op, (SlfmmOperator, MlfmmTreeOperator, MlfmmOperator))
+            and _near_data(op).diag_add.is_cuda):
         op = gather_form(op)
     return op
+
+
+def _near_data(op):
+    """The data holding an FMM operator's near field and diagonal:
+    SlfmmData and MlfmmTreeData carry them at top level; only the flattened
+    two-level MlfmmData nests them under ``leaf``."""
+    return op.data.leaf if isinstance(op.data, MlfmmData) else op.data
 
 
 def _slfmm_gather_form(d: SlfmmData) -> SlfmmData:
@@ -332,6 +401,24 @@ def _slfmm_gather_form(d: SlfmmData) -> SlfmmData:
                       elem_pos=torch.as_tensor(elem_pos, dtype=torch.int64, device=dev))
 
 
+def _slot_sums(far, near, near_of_tgt, mask):
+    """The gather form's accumulation: far field plus the near pairs summed
+    per target cluster (``near_of_tgt``, padded with the index of a zero
+    row), at the (C, m) slots, pads masked to zero."""
+    nearp = torch.cat([near, near.new_zeros((1, near.shape[1]))])
+    return (far + torch.sum(nearp[near_of_tgt], dim=1)) * mask
+
+
+def _scattered(n, d, far, near, mask):
+    """The scatter form's accumulation into element order: the far field
+    at every cluster slot and each near pair at its target's slots."""
+    out = torch.zeros(n, dtype=far.dtype, device=far.device)
+    out.index_add_(0, d.clusters.reshape(-1), (far * mask).reshape(-1))
+    tgt = d.clusters[d.near_b]
+    out.index_add_(0, tgt.reshape(-1), (near * mask[d.near_b]).reshape(-1))
+    return out
+
+
 class SlfmmOperator(LinearOperator):
     """Matrix-free A x = (c I + near + S D T) x (slfmm.rs:150 matvec)."""
 
@@ -339,34 +426,31 @@ class SlfmmOperator(LinearOperator):
         self.data = data
         self.n = n
 
-    def matvec(self, x):
+    def _far_near(self, xc):
+        """(far field (C, m), near pair products (P, m)) of the masked
+        cluster-major input ``xc`` (C, m), before accumulation."""
         d = self.data
-        mask = d.cluster_mask.to(x.dtype)
-        xc = x[d.clusters] * mask  # (C, m)
         mu = _bmv(d.t_tensor, xc)  # up: (C, Q)
         lam = torch.sum(d.d_tensor * mu[None, :, :], dim=1)  # translate
         far = d.prefactor * _bmv(d.s_tensor.transpose(1, 2), d.quad_w.to(lam.dtype) * lam)
         # the near sources come from the gathered (C, m) cluster values:
         # row gathers of xc, not P*m scalar gathers from x
-        near = _bmv(d.near_blocks, xc[d.near_a])
+        return far, _bmv(d.near_blocks, xc[d.near_a])
+
+    def matvec(self, x):
+        d = self.data
+        mask = d.cluster_mask.to(x.dtype)
+        far, near = self._far_near(x[d.clusters] * mask)
         if d.elem_pos is not None:  # scatter-free form (gather_form)
-            nearp = torch.cat([near, near.new_zeros((1, near.shape[1]))])
-            near_t = torch.sum(nearp[d.near_of_tgt], dim=1)
-            tot = (far + near_t) * mask
+            tot = _slot_sums(far, near, d.near_of_tgt, mask)
             return tot.reshape(-1)[d.elem_pos] + d.diag_add * x
-        out = torch.zeros(self.n, dtype=far.dtype, device=x.device)
-        out.index_add_(0, d.clusters.reshape(-1), (far * mask).reshape(-1))
-        tgt = d.clusters[d.near_b]
-        out.index_add_(0, tgt.reshape(-1), (near * mask[d.near_b]).reshape(-1))
-        return out + d.diag_add * x
+        return _scattered(self.n, d, far, near, mask) + d.diag_add * x
 
     def to(self, dtype=None, device=None) -> "SlfmmOperator":
         """A copy at the precision of the complex ``dtype`` (complex
         tensors in ``dtype``, real ones in its real counterpart) on
         ``device``; None keeps either."""
-        d = self.data
-        return SlfmmOperator(SlfmmData(*(None if v is None else to_precision(v, dtype, device)
-                                         for v in d)), self.n)
+        return SlfmmOperator(self.data.to(dtype, device), self.n)
 
 
 def _leaf_level(mesh: SurfaceMesh, k: float, max_per_leaf: int, separation_ratio: float,
@@ -379,8 +463,7 @@ def _leaf_level(mesh: SurfaceMesh, k: float, max_per_leaf: int, separation_ratio
     tree = Octree.build(mesh.centers, max_per_leaf=max_per_leaf)
     clusters, mask, c_centers, radii = _pack_clusters(tree.leaves, mesh.centers)
     if expansion_order is None:
-        kr = k * radii.max()
-        expansion_order = int(np.ceil(kr + 4 * np.log(kr + np.pi) + 4))
+        expansion_order = _expansion_order(k * radii.max())
     dirs, w = unit_sphere_quadrature(expansion_order)
     dist = np.linalg.norm(c_centers[:, None] - c_centers[None, :], axis=-1)
     far = dist > separation_ratio * (radii[:, None] + radii[None, :])
@@ -663,22 +746,7 @@ def build_slfmm_mixed_system(
     device = resolve_device(device)
     cdtype = complex_dtype_for(dtype)
     n = mesh.num_elements
-    normals = mesh.normals
-
-    bc_types = np.asarray(bc.types, np.int32)
-    bc_values = np.asarray(bc.values, complex)
-    if bc_types.shape != (n,) or bc_values.shape != (n,):
-        raise ValueError(f"boundary data have shapes {bc_types.shape} and {bc_values.shape}, "
-                         f"expected ({n},)")
-    m = (bc_types == 0).astype(float)  # 1 where p is the unknown (velocity BC)
-    omega = k * speed_of_sound
-    q_known = np.where(bc_types == 0, 1j * omega * density * bc_values, 0.0)
-    p_known = np.where(bc_types == 1, bc_values, 0.0)
-    adm = getattr(bc, "admittance", None)
-    adm_arr = (
-        np.zeros(n, complex) if adm is None
-        else np.broadcast_to(np.asarray(adm, complex), (n,)).astype(complex)
-    )
+    m, q_known, p_known, adm_arr = _mixed_columns(mesh, bc, k, density, speed_of_sound)
 
     with full_f32_matmul():
         clusters, mask, c_centers, order, dirs, w, far, orders_pair = _leaf_level(
@@ -702,7 +770,8 @@ def build_slfmm_mixed_system(
             # shared Burton-Miller row factor (see build_slfmm_system)
             s_tensor = _apply_bm_row_factor(
                 s_tensor, torch.as_tensor(dirs, dtype=dtype, device=device),
-                torch.as_tensor(normals[clusters], dtype=dtype, device=device), beta * 1j * k,
+                torch.as_tensor(mesh.normals[clusters], dtype=dtype, device=device),
+                beta * 1j * k,
             )
         d_tensor = _far_translations(k, c_centers, far, dirs, order, orders_pair, dtype=dtype,
                                      device=device)
@@ -712,24 +781,8 @@ def build_slfmm_mixed_system(
             mesh, clusters, mask, nb, na, k, beta, m, adm_arr, dtype,
             quad_order=quad_order, device=device,
         )
-
-        # Diagonals (dense-path formulas, assembly._mixed_rows):
-        #   ap_diag = 1/2 - D0_ii (+ beta t_self) = 1 + rowsum0 + beta t_self
-        #   aq_diag = S_ii - beta/2                       (flat-element K'_ii = 0)
-        rowsum0 = _host(_static_dlp_row_sums(mesh, dtype, device=device))
-        ap_diag = (1.0 + rowsum0).astype(complex)
-        if beta != 0.0:
-            self_r, self_w = _self_angular_rule(mesh)
-            ikc = 1j * k
-            t_diff_self = np.sum(
-                self_w * (ikc - (np.exp(ikc * self_r) - 1.0) / self_r), axis=1
-            ) / (4.0 * np.pi)
-            s0 = _host(_static_hyper_row_sums(mesh, quad_order, dtype=dtype, device=device))
-            ap_diag = ap_diag + beta * (t_diff_self - s0)
-        s_self = _host(single_layer_self_terms(mesh, k, dtype=dtype, device=device))
-        aq_diag = s_self - (beta / 2.0 if beta != 0.0 else 0.0)
-        diag_main = m * (ap_diag + (-1j * k * adm_arr) * aq_diag) + (1.0 - m) * aq_diag
-        diag_comp = m * aq_diag + (1.0 - m) * ap_diag
+        diag_main, diag_comp = _mixed_diagonals(mesh, k, beta, m, adm_arr, quad_order, dtype,
+                                                device)
 
     prefactor = -1j * k / (16.0 * np.pi**2)
 
@@ -740,19 +793,68 @@ def build_slfmm_mixed_system(
 
     op = operator(t_main, blk_main, diag_main)
     comp_op = operator(t_comp, blk_comp, diag_comp)
+    rhs = _mixed_rhs(mesh, k, beta, incident, comp_op, m, q_known, p_known, dtype, device)
+    return op, rhs, np.asarray(bc.types, np.int32) == 0
 
+
+def _mixed_columns(mesh, bc, k, density, speed_of_sound):
+    """Per-element column data of a mixed-BC system: (m, q_known, p_known,
+    admittance), m = 1 where p is the unknown (velocity BC)."""
+    n = mesh.num_elements
+    bc_types = np.asarray(bc.types, np.int32)
+    bc_values = np.asarray(bc.values, complex)
+    if bc_types.shape != (n,) or bc_values.shape != (n,):
+        raise ValueError(f"boundary data have shapes {bc_types.shape} and {bc_values.shape}, "
+                         f"expected ({n},)")
+    omega = k * speed_of_sound
+    q_known = np.where(bc_types == 0, 1j * omega * density * bc_values, 0.0)
+    p_known = np.where(bc_types == 1, bc_values, 0.0)
+    adm = getattr(bc, "admittance", None)
+    adm_arr = (
+        np.zeros(n, complex) if adm is None
+        else np.broadcast_to(np.asarray(adm, complex), (n,)).astype(complex)
+    )
+    return (bc_types == 0).astype(float), q_known, p_known, adm_arr
+
+
+def _mixed_diagonals(mesh, k, beta, m, adm_arr, quad_order, dtype, device):
+    """(diag_main, diag_comp) of a mixed-BC FMM system, host complex, by
+    the dense-path formulas (assembly._mixed_rows):
+      ap_diag = 1/2 - D0_ii (+ beta t_self) = 1 + rowsum0 + beta t_self
+      aq_diag = S_ii - beta/2                       (flat-element K'_ii = 0)"""
+    rowsum0 = _host(_static_dlp_row_sums(mesh, dtype, device=device))
+    ap_diag = (1.0 + rowsum0).astype(complex)
+    if beta != 0.0:
+        self_r, self_w = _self_angular_rule(mesh)
+        ikc = 1j * k
+        t_diff_self = np.sum(
+            self_w * (ikc - (np.exp(ikc * self_r) - 1.0) / self_r), axis=1
+        ) / (4.0 * np.pi)
+        s0 = _host(_static_hyper_row_sums(mesh, quad_order, dtype=dtype, device=device))
+        ap_diag = ap_diag + beta * (t_diff_self - s0)
+    s_self = _host(single_layer_self_terms(mesh, k, dtype=dtype, device=device))
+    aq_diag = s_self - (beta / 2.0 if beta != 0.0 else 0.0)
+    diag_main = m * (ap_diag + (-1j * k * adm_arr) * aq_diag) + (1.0 - m) * aq_diag
+    diag_comp = m * aq_diag + (1.0 - m) * ap_diag
+    return diag_main, diag_comp
+
+
+def _mixed_rhs(mesh, k, beta, incident, comp_op, m, q_known, p_known, dtype, device):
+    """The mixed-BC right-hand side: the incident field (with its
+    Burton-Miller normal derivative) minus the complementary operator
+    applied to the prescribed values (in gather form: deterministic)."""
+    cdtype = complex_dtype_for(dtype)
     centers_t = torch.as_tensor(mesh.centers, dtype=dtype, device=device)
     if incident is not None:
         rhs_inc = incident.pressure(centers_t, k).to(cdtype)
         if beta != 0.0:
             rhs_inc = rhs_inc - beta * incident.normal_derivative(
-                centers_t, torch.as_tensor(normals, dtype=dtype, device=device), k
+                centers_t, torch.as_tensor(mesh.normals, dtype=dtype, device=device), k
             ).to(cdtype)
     else:
-        rhs_inc = torch.zeros(n, dtype=cdtype, device=device)
+        rhs_inc = torch.zeros(mesh.num_elements, dtype=cdtype, device=device)
     known = torch.as_tensor(q_known * m + p_known * (1.0 - m), device=device).to(cdtype)
-    rhs = rhs_inc - gather_form(comp_op).matvec(known)
-    return op, rhs, bc_types == 0
+    return rhs_inc - gather_form(comp_op).matvec(known)
 
 
 def _pack_clusters(nodes, centers):
@@ -864,6 +966,140 @@ def _level_tensors(mesh, clusters, mask, c_centers, far, k, dirs, w, order, dtyp
     return t_tensor, s_tensor, d_tensor
 
 
+class MlfmmData(NamedTuple):
+    """The two-level FMM: a leaf level (near blocks + leaf-level far
+    translations) plus a coarse level handling the pairs that are far at
+    the parent scale (mlfmm.rs upward/downward passes flattened into direct
+    per-level aggregation: exact, static shapes)."""
+
+    leaf: SlfmmData  # near blocks + leaf-level far pairs (parents near)
+    coarse_clusters: torch.Tensor  # (Cc, mc) element ids
+    coarse_mask: torch.Tensor  # (Cc, mc)
+    coarse_t: torch.Tensor  # (Cc, Qc, mc)
+    coarse_s: torch.Tensor  # (Cc, Qc, mc)
+    coarse_d: torch.Tensor  # (Cc, Cc, Qc)
+    coarse_w: torch.Tensor  # (Qc,)
+    coarse_prefactor: torch.Tensor
+    coarse_elem_pos: Optional[torch.Tensor] = None  # (N,) gather_form
+
+    def to(self, dtype=None, device=None) -> "MlfmmData":
+        """A copy at the precision of the complex ``dtype`` on ``device``
+        (``_fields_to``)."""
+        return _fields_to(self, dtype, device)
+
+
+class MlfmmOperator(LinearOperator):
+    """Matrix-free two-level matvec (mlfmm.rs:954 MlfmmSystem::matvec)."""
+
+    def __init__(self, data: MlfmmData, n: int):
+        self.data = data
+        self.n = n
+
+    def matvec(self, x):
+        d = self.data
+        out = SlfmmOperator(d.leaf, self.n).matvec(x)
+        mask = d.coarse_mask.to(x.dtype)
+        mu = _bmv(d.coarse_t, x[d.coarse_clusters] * mask)
+        lam = torch.sum(d.coarse_d * mu[None, :, :], dim=1)
+        far = d.coarse_prefactor * _bmv(d.coarse_s.transpose(1, 2),
+                                        d.coarse_w.to(lam.dtype) * lam) * mask
+        if d.coarse_elem_pos is not None:  # scatter-free (gather_form)
+            return out + far.reshape(-1)[d.coarse_elem_pos]
+        return out.index_add_(0, d.coarse_clusters.reshape(-1), far.reshape(-1))
+
+    def to(self, dtype=None, device=None) -> "MlfmmOperator":
+        """A copy at the precision of the complex ``dtype`` on ``device``."""
+        return MlfmmOperator(self.data.to(dtype, device), self.n)
+
+
+def _expansion_order(kr: float) -> int:
+    """L ~ k r + 4 log(k r + pi) + 4, the standard rule."""
+    return int(np.ceil(kr + 4 * np.log(kr + np.pi) + 4))
+
+
+def build_mlfmm_system(
+    mesh: SurfaceMesh,
+    k: float,
+    max_per_leaf: int = 32,
+    separation_ratio: float = 1.5,
+    dtype=None,
+    stability_tau: float = 1.0e8,
+    agg_phase_f32: bool = False,
+    *,
+    device=None,
+) -> MlfmmOperator:
+    """Two-level FMM (mlfmm.rs:979 build_mlfmm_system), on ``device``
+    (default ``cuda``) in ``dtype`` (default float32): pairs that are far at
+    the coarse (parent) scale translate between coarse clusters with the
+    coarse expansion order; remaining far pairs translate at the leaf
+    level; neighbours stay dense. Aggregation goes element->level directly
+    (no M2M interpolation), keeping shapes static and exact."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    cdtype = complex_dtype_for(dtype)
+    n = mesh.num_elements
+    centers = mesh.centers
+    screen = dict(dtype=dtype, device=device)
+
+    with full_f32_matmul():
+        leaves = Octree.build(centers, max_per_leaf=max_per_leaf).leaves
+        parents = Octree.build(centers, max_per_leaf=max_per_leaf * 8).leaves
+        cl_f, mk_f, cc_f, r_f = _pack_clusters(leaves, centers)
+        cl_c, mk_c, cc_c, r_c = _pack_clusters(parents, centers)
+
+        # parent of each leaf: the coarse cluster holding its first element
+        elem_to_coarse = np.zeros(n, np.int32)
+        for ci, nd in enumerate(parents):
+            elem_to_coarse[nd.indices] = ci
+        leaf_parent = elem_to_coarse[cl_f[:, 0]]
+
+        d_f = np.linalg.norm(cc_f[:, None] - cc_f[None, :], axis=-1)
+        far_leaf = d_f > separation_ratio * (r_f[:, None] + r_f[None, :])
+        d_c = np.linalg.norm(cc_c[:, None] - cc_c[None, :], axis=-1)
+        far_coarse = d_c > separation_ratio * (r_c[:, None] + r_c[None, :])
+        order_f = _expansion_order(k * r_f.max())
+        order_c = _expansion_order(k * r_c.max())
+
+        # Stability screen first at the coarse level (demoted pairs fall to
+        # the leaf level), then at the leaf level (demoted pairs fall to
+        # exact near blocks): graceful wideband degradation.
+        far_coarse, orders_c = _stable_far_orders(k, cc_c, r_c, far_coarse, order_c,
+                                                  stability_tau, **screen)
+        # leaf pairs whose parents are far are handled at the coarse level
+        parents_far = far_coarse[leaf_parent[:, None], leaf_parent[None, :]]
+        far_leaf_only, orders_f = _stable_far_orders(k, cc_f, r_f, far_leaf & ~parents_far,
+                                                     order_f, stability_tau, **screen)
+        near_leaf = ~far_leaf_only & ~parents_far
+
+        dirs_f, w_f = unit_sphere_quadrature(order_f)
+        dirs_c, w_c = unit_sphere_quadrature(order_c)
+        t_f, s_f, d_tf = _level_tensors(mesh, cl_f, mk_f, cc_f, far_leaf_only, k, dirs_f, w_f,
+                                        order_f, dtype, orders_pair=orders_f,
+                                        phase_f32=agg_phase_f32, device=device)
+        t_c, s_c, d_tc = _level_tensors(mesh, cl_c, mk_c, cc_c, far_coarse, k, dirs_c, w_c,
+                                        order_c, dtype, orders_pair=orders_c,
+                                        phase_f32=agg_phase_f32, device=device)
+        nb, na = np.where(near_leaf)
+        near_blocks = _near_blocks(mesh, cl_f, mk_f, nb, na, k, 0.0, dtype, device=device)
+        # same exact static row-sum diagonal as build_slfmm_system
+        diag_add = 1.0 + _static_dlp_row_sums(mesh, dtype, device=device)
+
+    pref = -1j * k / (16.0 * np.pi**2)
+    leaf = _slfmm_data(cl_f, mk_f, t_f, s_f, d_tf, w_f, na, nb, near_blocks, diag_add, pref,
+                       dtype, device)
+    data = MlfmmData(
+        leaf=leaf,
+        coarse_clusters=torch.as_tensor(cl_c, dtype=torch.int64, device=device),
+        coarse_mask=torch.as_tensor(mk_c, dtype=dtype, device=device),
+        coarse_t=t_c,
+        coarse_s=s_c,
+        coarse_d=d_tc.to(cdtype),
+        coarse_w=torch.as_tensor(w_c, dtype=dtype, device=device),
+        coarse_prefactor=torch.tensor(pref, dtype=cdtype, device=device),
+    )
+    return MlfmmOperator(data, n)
+
+
 def estimate_num_levels(n_elements: int, max_per_leaf: int = 32) -> int:
     """mlfmm.rs estimate_num_levels analog."""
     return max(2, int(math.ceil(math.log(max(n_elements / max_per_leaf, 1), 8))) + 1)
@@ -970,6 +1206,481 @@ def _room_near_blocks(mesh, clusters, mask, nb, na, k, admittance, dtype, *, dev
     return blk
 
 
+# ---------------------------------------------------------------------------
+# The multilevel FMM tree: octree hierarchy with upward (M2M) and downward
+# (L2L) passes (mlfmm.rs:128 build_cluster_tree, :483 upward/downward
+# passes). Every level keeps its own unit-sphere grid sized to that level's
+# cluster radius; re-gridding between levels is a dense spherical-harmonic
+# interpolation matrix (one GEMM) and re-centering a diagonal phase shift,
+# both exact for band-limited signatures.
+# ---------------------------------------------------------------------------
+
+
+_SPH_HARM_CACHE: dict = {}
+
+
+def _sph_harm_matrix(dirs: np.ndarray, lmax: int) -> np.ndarray:
+    """Y[q, (l, m)] for l <= lmax on unit directions (host float64), columns
+    in the order l = 0..lmax, m = -l..l: scipy's ``sph_harm_y(l, m, theta,
+    phi)`` with the Condon-Shortley phase, computed by the orthonormal
+    associated-Legendre recurrence (stable upward in l at fixed m) times
+    e^{i m phi}, and Y_l^{-m} = (-1)^m conj(Y_l^m).
+
+    Memoised on (grid bytes, lmax): the tree build requests the same level
+    grids repeatedly (interp_up/interp_down share both endpoint grids)."""
+    key = (dirs.tobytes(), int(lmax))
+    hit = _SPH_HARM_CACHE.get(key)
+    if hit is not None:
+        return hit
+    x = np.clip(dirs[:, 2], -1.0, 1.0)
+    sin_t = np.sqrt(1.0 - x * x)
+    phi = np.arctan2(dirs[:, 1], dirs[:, 0])
+    out = np.empty((len(dirs), (lmax + 1) ** 2), complex)
+    p_mm = np.full_like(x, 1.0 / np.sqrt(4.0 * np.pi))  # P_0^0, normalised
+    for m in range(lmax + 1):
+        if m:
+            p_mm = -np.sqrt((2.0 * m + 1.0) / (2.0 * m)) * sin_t * p_mm
+        e_m = np.exp(1j * m * phi)
+        p_prev, p_l = None, p_mm
+        for l in range(m, lmax + 1):
+            if l == m + 1:
+                p_prev, p_l = p_l, np.sqrt(2.0 * m + 3.0) * x * p_l
+            elif l > m + 1:
+                a = np.sqrt((4.0 * l * l - 1.0) / (l * l - m * m))
+                b = np.sqrt(((l - 1.0) ** 2 - m * m) / (4.0 * (l - 1.0) ** 2 - 1.0))
+                p_prev, p_l = p_l, a * (x * p_l - b * p_prev)
+            y = p_l * e_m
+            out[:, l * l + l + m] = y
+            if m:
+                out[:, l * l + l - m] = (-1.0) ** m * np.conj(y)
+    if len(_SPH_HARM_CACHE) > 32:  # bound the per-process footprint
+        _SPH_HARM_CACHE.clear()
+    _SPH_HARM_CACHE[key] = out
+    return out
+
+
+def sphere_interp_matrix(dirs_from, w_from, dirs_to, l_band: int) -> np.ndarray:
+    """(Q_to, Q_from) matrix interpolating band-limited (l <= l_band)
+    functions between two unit-sphere quadrature grids: spherical-harmonic
+    analysis on the source grid (exact: the Gauss x uniform rule integrates
+    the needed products) followed by synthesis on the target grid."""
+    yf = _sph_harm_matrix(dirs_from, l_band)
+    yt = _sph_harm_matrix(dirs_to, l_band)
+    return yt @ (yf.conj() * w_from[:, None]).T
+
+
+class MlfmmLevel(NamedTuple):
+    """One tree level (on the build's device). The M2M/L2L fields tie this
+    level to the previous (coarser) one; they are empty at the top level.
+    The four trailing optional fields are the scatter-free accumulation
+    tables (``gather_form``) and the selection matrix (``sel_form``)."""
+
+    parent: torch.Tensor  # (C,) index into the coarser level's nodes
+    shift_up: torch.Tensor  # (C, Q_coarse) e^{-ik s.(c_child - c_parent)}
+    shift_down: torch.Tensor  # (C, Q_coarse) conjugate shift for L2L
+    interp_up: torch.Tensor  # (Q_coarse, Q) fine -> coarse grid
+    interp_down: torch.Tensor  # (Q, Q_coarse) coarse -> fine grid
+    trans_tgt: torch.Tensor  # (P,) target node of each far pair here
+    trans_src: torch.Tensor  # (P,)
+    trans_op: torch.Tensor  # (P, Q) diagonal translation values
+    trans_of_tgt: Optional[torch.Tensor] = None  # (C, K) pair ids, pad = P
+    children_idx: Optional[torch.Tensor] = None  # (C_coarse, Kc) node ids here
+    children_mask: Optional[torch.Tensor] = None  # (C_coarse, Kc) 1/0
+    # (C, P) 0/1 pair->target selection matrix: the target-side pair
+    # reduction as one GEMM per level instead of the (C, K, Q) gather + sum
+    sel: Optional[torch.Tensor] = None
+
+    def to(self, dtype=None, device=None) -> "MlfmmLevel":
+        """A copy at the precision of the complex ``dtype`` on ``device``
+        (``_fields_to``)."""
+        return _fields_to(self, dtype, device)
+
+
+class MlfmmTreeData(NamedTuple):
+    clusters: torch.Tensor  # (C_leaf, m) element ids
+    cluster_mask: torch.Tensor  # (C_leaf, m)
+    t_tensor: torch.Tensor  # (C_leaf, Q_leaf, m)
+    s_tensor: torch.Tensor  # (C_leaf, Q_leaf, m)
+    quad_w: torch.Tensor  # (Q_leaf,)
+    near_a: torch.Tensor
+    near_b: torch.Tensor
+    near_blocks: torch.Tensor
+    diag_add: torch.Tensor
+    prefactor: torch.Tensor
+    levels: Tuple[MlfmmLevel, ...]  # coarsest ... leaf
+    near_of_tgt: Optional[torch.Tensor] = None  # (C_leaf, Kn) gather_form
+    elem_pos: Optional[torch.Tensor] = None  # (N,) gather_form
+
+    def to(self, dtype=None, device=None) -> "MlfmmTreeData":
+        """A copy at the precision of the complex ``dtype`` on ``device``
+        (``_fields_to``), every level included."""
+        return _fields_to(self, dtype, device)
+
+
+def _tree_gather_form(d: MlfmmTreeData) -> MlfmmTreeData:
+    """Scatter-free tables for the hierarchical matvec: per-level
+    translation pairs grouped by target, M2M parent reductions inverted
+    into per-parent children tables, near pairs grouped by target leaf,
+    and the leaf-output scatter inverted into the element-position
+    gather."""
+    dev = d.clusters.device
+
+    def ids(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+    levels = []
+    for i, lv in enumerate(d.levels):
+        c_here = int(lv.parent.shape[0])  # parent is stored per node
+        n_pairs = int(lv.trans_tgt.shape[0])
+        tot = (_pad_by_target(_host(lv.trans_tgt), c_here, n_pairs) if n_pairs
+               else np.zeros((c_here, 1), np.int32))
+        kw = {"trans_of_tgt": ids(tot)}
+        if i > 0:  # the children table lives on the level whose parents it maps
+            par = _host(lv.parent)
+            n_coarse = int(d.levels[i - 1].parent.shape[0])
+            tbl = _pad_by_target(par, n_coarse, pad_value=0)
+            counts = np.bincount(par, minlength=n_coarse)
+            kw["children_idx"] = ids(tbl)
+            kw["children_mask"] = torch.as_tensor(
+                np.arange(tbl.shape[1])[None, :] < counts[:, None], dtype=d.cluster_mask.dtype,
+                device=dev)
+        levels.append(lv._replace(**kw))
+    near_of_tgt = _pad_by_target(_host(d.near_b), d.clusters.shape[0],
+                                 pad_value=int(d.near_b.shape[0]))
+    elem_pos = _elem_positions(_host(d.clusters), _host(d.cluster_mask))
+    return d._replace(levels=tuple(levels), near_of_tgt=ids(near_of_tgt), elem_pos=ids(elem_pos))
+
+
+class MlfmmTreeOperator(LinearOperator):
+    """Matrix-free hierarchical matvec: aggregate at leaves, M2M upward,
+    translate per level, L2L downward, disaggregate at leaves
+    (mlfmm.rs:954 MlfmmSystem::matvec upward/downward passes)."""
+
+    def __init__(self, data: MlfmmTreeData, n: int):
+        self.data = data
+        self.n = n
+
+    def _far_near(self, xc):
+        """(far field (C, m), near pair products (P, m)) of the masked
+        cluster-major input ``xc`` (C, m), before accumulation."""
+        d = self.data
+        gather = d.elem_pos is not None  # scatter-free form (gather_form)
+        mu = [None] * len(d.levels)
+        mu[-1] = _bmv(d.t_tensor, xc)
+        for i in range(len(d.levels) - 1, 0, -1):  # upward: M2M (interp then shift)
+            lv = d.levels[i]
+            up = (mu[i] @ lv.interp_up.T.to(mu[i].dtype)) * lv.shift_up
+            if gather:
+                mu[i - 1] = torch.sum(up[lv.children_idx]
+                                      * lv.children_mask[:, :, None].to(up.dtype), dim=1)
+            else:
+                n_coarse = d.levels[i - 1].parent.shape[0]  # parent stored per node
+                mu[i - 1] = up.new_zeros((n_coarse, up.shape[1])).index_add_(0, lv.parent, up)
+        loc = None
+        for i, lv in enumerate(d.levels):  # downward: translate + L2L
+            if lv.trans_op.shape[0]:
+                contrib = lv.trans_op.to(mu[i].dtype) * mu[i][lv.trans_src]
+                if lv.sel is not None:
+                    # the pair->target reduction as one real GEMM over the
+                    # interleaved (re, im) columns
+                    p, q = contrib.shape
+                    sel = lv.sel.to(real_dtype_for(contrib.dtype))
+                    lam = torch.view_as_complex(
+                        (sel @ torch.view_as_real(contrib).reshape(p, 2 * q)).reshape(-1, q, 2))
+                elif gather:
+                    cp = torch.cat([contrib, contrib.new_zeros((1, contrib.shape[1]))])
+                    lam = torch.sum(cp[lv.trans_of_tgt], dim=1)
+                else:
+                    lam = torch.zeros_like(mu[i]).index_add_(0, lv.trans_tgt, contrib)
+            else:
+                lam = torch.zeros_like(mu[i])
+            if loc is not None:
+                lam = lam + (loc[lv.parent] * lv.shift_down) @ lv.interp_down.T.to(lam.dtype)
+            loc = lam
+        far = d.prefactor * _bmv(d.s_tensor.transpose(1, 2), d.quad_w.to(loc.dtype) * loc)
+        return far, _bmv(d.near_blocks, xc[d.near_a])
+
+    def matvec(self, x):
+        d = self.data
+        mask = d.cluster_mask.to(x.dtype)
+        far, near = self._far_near(x[d.clusters] * mask)
+        if d.elem_pos is not None:
+            tot = _slot_sums(far, near, d.near_of_tgt, mask)
+            return tot.reshape(-1)[d.elem_pos] + d.diag_add * x
+        return _scattered(self.n, d, far, near, mask) + d.diag_add * x
+
+    def to(self, dtype=None, device=None) -> "MlfmmTreeOperator":
+        """A copy at the precision of the complex ``dtype`` on ``device``."""
+        return MlfmmTreeOperator(self.data.to(dtype, device), self.n)
+
+
+def _tree_data(clusters, mask, t_tensor, s_tensor, w, na, nb, near_blocks, diag_add, levels, k,
+               dtype, device) -> MlfmmTreeData:
+    """MlfmmTreeData on ``device``: T and S as given, everything else in
+    ``dtype``'s precision, with the exterior systems' CBIE-minus
+    prefactor."""
+    cdtype = complex_dtype_for(dtype)
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    return MlfmmTreeData(
+        clusters=ids(clusters),
+        cluster_mask=torch.as_tensor(mask, dtype=dtype, device=device),
+        t_tensor=t_tensor,
+        s_tensor=s_tensor,
+        quad_w=torch.as_tensor(w, dtype=dtype, device=device),
+        near_a=ids(na),
+        near_b=ids(nb),
+        near_blocks=near_blocks.to(cdtype),
+        diag_add=torch.as_tensor(diag_add, device=device).to(cdtype),
+        prefactor=torch.tensor(-1j * k / (16.0 * np.pi**2), dtype=cdtype, device=device),
+        levels=levels,
+    )
+
+
+def build_mlfmm_tree_system(
+    mesh: SurfaceMesh,
+    k: float,
+    beta: complex = 0.0,
+    max_per_leaf: int = 16,
+    separation_ratio: float = 2.0,
+    dtype=None,
+    stability_tau: float = _MLFMM_STABILITY_TAU,
+    agg_phase_f32: bool = False,
+    *,
+    device=None,
+) -> MlfmmTreeOperator:
+    """Hierarchical MLFMM for the exterior CBIE A = (1/2)I - D (+ beta T
+    Burton-Miller when beta != 0: the direction-space row factor applies at
+    leaf disaggregation, covering every level's translations; near blocks
+    get the exact hypersingular kernel with the static row-sum self
+    correction), on ``device`` (default ``cuda``) in ``dtype`` (default
+    float32).
+
+    Levels follow the octree depths; shallow leaves continue virtually (a
+    leaf is its own child at every deeper depth, with zero-shift M2M) so
+    every depth partitions all elements. Each far pair is translated
+    exactly once: at the coarsest depth where the pair's ancestors are well
+    separated (mlfmm.rs interaction lists) and the screen keeps it."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    with full_f32_matmul():
+        clusters, mask, cc_leaf, dirs_leaf, w_leaf, levels, nb, na = _tree_skeleton(
+            mesh, k, max_per_leaf, separation_ratio, stability_tau, complex_dtype_for(dtype),
+            device=device)
+        t_tensor, s_tensor = _agg_disagg_tensors(mesh, clusters, mask, cc_leaf, k, dirs_leaf,
+                                                 phase_f32=agg_phase_f32, dtype=dtype,
+                                                 device=device)
+        if beta != 0.0:
+            # (1 - beta ik s.n_x): the prefactor carries the CBIE minus, so
+            # this yields -D + beta T (see build_slfmm_system)
+            s_tensor = _apply_bm_row_factor(
+                s_tensor, torch.as_tensor(dirs_leaf, dtype=dtype, device=device),
+                torch.as_tensor(mesh.normals[clusters], dtype=dtype, device=device),
+                beta * 1j * k,
+            )
+        near_blocks = _near_blocks(mesh, clusters, mask, nb, na, k, beta, dtype, device=device)
+        # same exact static row-sum diagonal as build_slfmm_system
+        diag_add = 1.0 + _static_dlp_row_sums(mesh, dtype, device=device)
+    data = _tree_data(clusters, mask, t_tensor, s_tensor, w_leaf, na, nb, near_blocks, diag_add,
+                      levels, k, dtype, device)
+    return MlfmmTreeOperator(data, mesh.num_elements)
+
+
+def _tree_skeleton(mesh, k, max_per_leaf, separation_ratio, stability_tau, cdtype, *, device):
+    """Shared octree/interaction-list/level construction of the
+    hierarchical MLFMM (rigid and mixed builds): returns
+    (clusters, mask, cc_leaf, dirs_leaf, w_leaf, levels, near_b, near_a)
+    with ``levels`` the tuple of MlfmmLevel (translation tables, M2M/L2L
+    shifts and grid interpolations, on ``device`` in ``cdtype``) and the
+    near pairs at leaf depth. The octree, the lists, the shifts and the
+    interpolations are host numpy; the screen and the translation tables
+    run on ``device`` in ``cdtype``'s real precision."""
+    rdtype = real_dtype_for(cdtype)
+    centers = mesh.centers
+    tree = Octree.build(centers, max_per_leaf=max_per_leaf)
+    depth_max = max(lf.depth for lf in tree.leaves)
+
+    # effective node lists per depth (virtual continuation of leaves)
+    nodes_at: list = [[] for _ in range(depth_max + 1)]
+    par: list = [[] for _ in range(depth_max + 1)]
+    seen: list = [dict() for _ in range(depth_max + 1)]
+
+    def walk(node, d, parent_index):
+        key = id(node)
+        if key not in seen[d]:
+            seen[d][key] = len(nodes_at[d])
+            nodes_at[d].append(node)
+            par[d].append(parent_index)
+        i = seen[d][key]
+        if node.children:
+            for c in node.children:
+                walk(c, d + 1, i)
+        elif d < depth_max:
+            walk(node, d + 1, i)
+
+    walk(tree.root, 0, -1)
+
+    cc, rr = [], []  # per depth: (C, 3) centers, (C,) radii
+    for d in range(depth_max + 1):
+        # one reduceat pass per depth for every node's centre and radius
+        lens = np.array([len(nd.indices) for nd in nodes_at[d]], np.intp)
+        idx_cat = np.concatenate([nd.indices for nd in nodes_at[d]])
+        offs = np.zeros(len(lens), np.intp)
+        np.cumsum(lens[:-1], out=offs[1:])
+        pts = centers[idx_cat]
+        c = np.add.reduceat(pts, offs, axis=0) / lens[:, None]
+        owner = np.repeat(np.arange(len(lens)), lens)
+        d2 = np.sum((pts - c[owner]) ** 2, axis=1)
+        cc.append(c)
+        rr.append(np.sqrt(np.maximum.reduceat(d2, offs)) + 1e-12)
+
+    # interaction lists: handled at the coarsest depth whose ancestors are
+    # far AND whose diagonal-form translation is numerically stable; the
+    # unstable pairs stay uncovered and fall through to deeper levels or,
+    # at the leaves, to exact near blocks (graceful wideband degradation).
+    handled = [np.zeros((len(nodes_at[d]),) * 2, bool) for d in range(depth_max + 1)]
+    pair_orders = [np.zeros(0, np.int32) for _ in range(depth_max + 1)]
+    covered_prev = np.zeros((len(nodes_at[0]),) * 2, bool)
+    for d in range(1, depth_max + 1):
+        dist = np.linalg.norm(cc[d][:, None] - cc[d][None, :], axis=-1)
+        far = dist > separation_ratio * (rr[d][:, None] + rr[d][None, :])
+        pidx = np.asarray(par[d])
+        cov_parent = covered_prev[np.ix_(pidx, pidx)]
+        cand = far & ~cov_parent
+        if cand.any():
+            lmax_d = _expansion_order(float(k * 2 * rr[d].max()))
+            cand, pair_orders[d] = _stable_far_orders(k, cc[d], rr[d], cand, lmax_d,
+                                                      stability_tau, dtype=rdtype, device=device)
+        handled[d] = cand
+        covered_prev = handled[d] | cov_parent
+    near = ~covered_prev  # at leaf depth
+
+    d_top = next((d for d in range(1, depth_max + 1) if handled[d].any()), depth_max)
+
+    # per-depth expansion orders (coarser levels never below finer ones)
+    orders = {d: _expansion_order(k * rr[d].max()) for d in range(d_top, depth_max + 1)}
+    for d in range(depth_max - 1, d_top - 1, -1):
+        orders[d] = max(orders[d], orders[d + 1])
+    grids = {d: unit_sphere_quadrature(orders[d]) for d in range(d_top, depth_max + 1)}
+
+    # leaf-level packing
+    leaves = nodes_at[depth_max]
+    m = max(len(nd.indices) for nd in leaves)
+    clusters = np.zeros((len(leaves), m), np.int32)
+    mask = np.zeros((len(leaves), m))
+    for i, nd in enumerate(leaves):
+        clusters[i, : len(nd.indices)] = nd.indices
+        mask[i, : len(nd.indices)] = 1.0
+
+    def ids(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    def cplx(a):
+        return torch.as_tensor(np.asarray(a, complex), device=device).to(cdtype)
+
+    levels = []
+    for d in range(d_top, depth_max + 1):
+        dirs_d, w_d = grids[d]
+        n_here = len(nodes_at[d])
+        tb, ta = np.where(handled[d])
+        # stability-capped per-pair orders from the interaction-list screen
+        # (aligned: np.where on the screened mask keeps the row-major pair
+        # order the screen emitted)
+        t_op = _translation_padded(k, cc[d][tb] - cc[d][ta], dirs_d, orders[d],
+                                   np.minimum(pair_orders[d], orders[d]).astype(np.int32),
+                                   dtype=rdtype, device=device)
+        if d == d_top:
+            parent = np.zeros(n_here, np.int32)
+            shift_up = shift_down = np.zeros((n_here, 0), complex)
+            interp_up, interp_down = np.zeros((0, len(dirs_d))), np.zeros((len(dirs_d), 0))
+        else:
+            dirs_c, w_c = grids[d - 1]
+            parent = np.asarray(par[d], np.int32)
+            phase = np.einsum("qd,cd->cq", dirs_c, cc[d] - cc[d - 1][parent])  # child - parent
+            shift_up, shift_down = np.exp(-1j * k * phase), np.exp(1j * k * phase)
+            interp_up = sphere_interp_matrix(dirs_d, w_d, dirs_c, orders[d])
+            interp_down = sphere_interp_matrix(dirs_c, w_c, dirs_d, orders[d])
+        levels.append(MlfmmLevel(
+            parent=ids(parent), shift_up=cplx(shift_up), shift_down=cplx(shift_down),
+            interp_up=cplx(interp_up), interp_down=cplx(interp_down), trans_tgt=ids(tb),
+            trans_src=ids(ta), trans_op=t_op.to(cdtype)))
+
+    nb, na = np.where(near)
+    dirs_leaf, w_leaf = grids[depth_max]
+    return clusters, mask, cc[depth_max], dirs_leaf, w_leaf, tuple(levels), nb, na
+
+
+def build_mlfmm_tree_mixed_system(
+    mesh: SurfaceMesh,
+    k: float,
+    bc,
+    beta: complex = 0.0,
+    incident=None,
+    density: float = 1.204,
+    speed_of_sound: float = 343.0,
+    max_per_leaf: int = 16,
+    separation_ratio: float = 2.0,
+    quad_order: int = 3,
+    dtype=None,
+    stability_tau: float = _MLFMM_STABILITY_TAU,
+    *,
+    device=None,
+):
+    """Mixed velocity/pressure BCs through the hierarchical MLFMM tree, on
+    ``device`` (default ``cuda``) in ``dtype`` (default float32): the SLFMM
+    mixed column combination (``build_slfmm_mixed_system``) extended to
+    every tree level.
+
+    The per-column layer selection happens entirely in the LEAF aggregation
+    factor f_j = m_j (-ik s.n_j + ik adm_j) - (1 - m_j); M2M translations
+    and per-level diagonal operators act on direction signatures and are
+    layer-agnostic, so the whole tree is shared by the main and
+    complementary (RHS) operators: only the leaf T tensor, near blocks and
+    diagonal differ.
+
+    Returns (operator, rhs, unknown_p) with the dense mixed path's solution
+    semantics (u holds p on velocity elements, dp/dn on pressure ones)."""
+    dtype = dtype or default_float()
+    device = resolve_device(device)
+    cdtype = complex_dtype_for(dtype)
+    n = mesh.num_elements
+    m, q_known, p_known, adm_arr = _mixed_columns(mesh, bc, k, density, speed_of_sound)
+
+    with full_f32_matmul():
+        clusters, mask, cc_leaf, dirs_leaf, w_leaf, levels, nb, na = _tree_skeleton(
+            mesh, k, max_per_leaf, separation_ratio, stability_tau, cdtype, device=device)
+        # leaf aggregation factors (see build_slfmm_mixed_system)
+        agg = dict(dtype=dtype, device=device)
+        t_main, s_tensor = _agg_disagg_tensors(
+            mesh, clusters, mask, cc_leaf, k, dirs_leaf,
+            agg_alpha=m.astype(complex), agg_sigma=1j * k * adm_arr * m - (1.0 - m), **agg)
+        t_comp, _ = _agg_disagg_tensors(
+            mesh, clusters, mask, cc_leaf, k, dirs_leaf,
+            agg_alpha=(1.0 - m).astype(complex), agg_sigma=-m.astype(complex), **agg)
+        if beta != 0.0:
+            s_tensor = _apply_bm_row_factor(
+                s_tensor, torch.as_tensor(dirs_leaf, dtype=dtype, device=device),
+                torch.as_tensor(mesh.normals[clusters], dtype=dtype, device=device),
+                beta * 1j * k)
+        blk_main, blk_comp = _near_blocks_mixed(mesh, clusters, mask, nb, na, k, beta, m,
+                                                adm_arr, dtype, quad_order=quad_order,
+                                                device=device)
+        diag_main, diag_comp = _mixed_diagonals(mesh, k, beta, m, adm_arr, quad_order, dtype,
+                                                device)
+
+    def operator(t_tensor, blocks, diag):
+        return MlfmmTreeOperator(_tree_data(clusters, mask, t_tensor.to(cdtype),
+                                            s_tensor.to(cdtype), w_leaf, na, nb, blocks, diag,
+                                            levels, k, dtype, device), n)
+
+    op = operator(t_main, blk_main, diag_main)
+    comp_op = operator(t_comp, blk_comp, diag_comp)
+    rhs = _mixed_rhs(mesh, k, beta, incident, comp_op, m, q_known, p_known, dtype, device)
+    return op, rhs, np.asarray(bc.types, np.int32) == 0
+
+
 def near_field_csr(data: SlfmmData):
     """Sparse near-field matrix of an SLFMM system (host CSR): the exact
     near blocks plus the diagonal jump/self terms, the `nearfield_matrix`
@@ -1005,8 +1716,9 @@ def near_ilu_preconditioner(op, sweeps: int = 6):
     precision."""
     from mathaudio_tpu_torch.solvers.preconditioners.ilu import IluFixedPoint
 
-    return IluFixedPoint.from_csr(near_field_csr(op.data), sweeps=sweeps,
-                                  device=op.data.diag_add.device)
+    data = _near_data(op)
+    return IluFixedPoint.from_csr(near_field_csr(data), sweeps=sweeps,
+                                  device=data.diag_add.device)
 
 
 class ClusterBlockPreconditioner(LinearOperator):
@@ -1026,7 +1738,7 @@ class ClusterBlockPreconditioner(LinearOperator):
 
     @classmethod
     def from_operator(cls, op) -> "ClusterBlockPreconditioner":
-        data = op.data
+        data = _near_data(op)
         dev = data.diag_add.device
         cl, mk = data.clusters, data.cluster_mask
         c, m = cl.shape

@@ -1,11 +1,13 @@
 """High-level BEM API (counterpart of mathaudio_tpu/bem/solver.py):
 BemProblem (geometry + physics + excitation), BemSolver (dense assembly
 with LU or GMRES, or the matrix-free SLFMM with GMRES), BemSolution
-(surface pressure + field evaluation, dense or FMM).
+(surface pressure + field evaluation, dense or FMM). The FMM assemblies
+are the SLFMM and, for rigid problems, the MLFMM tree; mixed problems run
+the SLFMM under either, as the reference does.
 
-The MLFMM tree for rigid problems (slice 5b), the BiCGStab/CGS/QMRCGStab
-solvers (slice 6) and the device-mesh sharding (slice 8) are later slices
-of the port; each raises a ``ValueError`` that names its slice.
+The BiCGStab/CGS/QMRCGStab solvers (slice 6) and the device-mesh sharding
+(slice 8) are later slices of the port; each raises a ``ValueError`` that
+names its slice.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from mathaudio_tpu_torch.bem.assembly import (
     bc_vectors,
 )
 from mathaudio_tpu_torch.bem.fmm import (
+    build_mlfmm_tree_system,
     build_slfmm_mixed_system,
     build_slfmm_system,
     execution_form,
@@ -125,8 +128,8 @@ class BemSolver:
     without a GPU) in ``dtype`` (default float32).
 
     The FMM assemblies run GMRES whatever the method (matrix-free: LU has
-    nothing to factor), as the reference does, on an SLFMM operator built
-    in float64 (``fmm.execution_tau``, ``fmm.execution_form``): in float64
+    nothing to factor), as the reference does, on an SLFMM or MLFMM tree
+    operator built in float64 (``fmm.execution_tau``, ``fmm.execution_form``): in float64
     the reference's build (stability tau 1e8); in float32 the reference
     chip path's screen for float32 execution (tau 1e4) and a cast to
     complex64; on the GPU in its scatter-free ``gather_form``."""
@@ -243,9 +246,10 @@ class BemSolver:
 
     def _solve_mixed_fmm(self, problem: BemProblem) -> BemSolution:
         """Matrix-free mixed-BC solve (fmm.build_slfmm_mixed_system):
-        per-element velocity/pressure/admittance BCs at FMM scale. Only the
-        SLFMM operator exists for mixed columns, so an MLFMM config routes
-        here too (recorded in info); GMRES whatever the method."""
+        per-element velocity/pressure/admittance BCs at FMM scale. An MLFMM
+        config routes here too, as in the reference (recorded in info; the
+        mixed MLFMM tree is ``fmm.build_mlfmm_tree_mixed_system``); GMRES
+        whatever the method."""
         cfg = self.config
         mesh = problem.mesh
         ph = problem.physics
@@ -267,13 +271,11 @@ class BemSolver:
         return self._mixed_solution(problem, sol.x, info)
 
     def _solve_fmm(self, problem: BemProblem) -> BemSolution:
-        """Matrix-free SLFMM path: CBIE with GMRES; Burton–Miller rides the
-        direction-space row factors. LU is impossible matrix-free, so it
-        falls back to GMRES (recorded in info). The MLFMM tree is slice 5b."""
+        """Matrix-free FMM path (the SLFMM, or the MLFMM tree): CBIE with
+        GMRES; Burton–Miller rides the direction-space row factors. LU is
+        impossible matrix-free, so it falls back to GMRES (recorded in
+        info)."""
         cfg = self.config
-        if cfg.assembly == BemMethod.MLFMM:
-            raise ValueError("assembly 'mlfmm' on a rigid problem needs the MLFMM tree, which is "
-                             "not ported yet (slice 5b, MLFMM); use BemMethod.SLFMM")
         mesh = problem.mesh
         k = problem.physics.wave_number
         build = self._fmm_build()
@@ -287,8 +289,12 @@ class BemSolver:
             beta = problem.physics.burton_miller_beta_optimal(mesh.avg_element_size()) * scale
             normals = torch.tensor(mesh.normals, dtype=torch.float64, device=build["device"])
             rhs = rhs - beta * problem.incident.normal_derivative(centers, normals, k)
-        op = build_slfmm_system(mesh, k, beta=beta, max_per_leaf=64, separation_ratio=2.0,
-                                **build)
+        if cfg.assembly == BemMethod.SLFMM:
+            op = build_slfmm_system(mesh, k, beta=beta, max_per_leaf=64, separation_ratio=2.0,
+                                    **build)
+        else:
+            op = build_mlfmm_tree_system(mesh, k, beta=beta, max_per_leaf=16,
+                                         separation_ratio=2.0, **build)
         sol = self._fmm_gmres(op, rhs)
         info = {
             "method": "gmres",  # matrix-free: LU falls back to GMRES

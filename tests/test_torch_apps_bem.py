@@ -10,8 +10,7 @@ qa_bem_results/summary.json at subdivision 2 give the recorded values to
 picks the FMM tier (``_solve_room_fmm``), and that tier on the tiny room
 gives the JAX app's SPL to 1e-6 dB with equal GMRES iterations; the QA
 ``slfmm`` case at subdivision 1 gives the JAX package's rel_l2 to 1e-9
-(relative); the QA ``mlfmm`` case raises a ValueError naming slice 5b
-before any assembly. The FMM comparisons run the reference with its
+(relative); tests/test_torch_mlfmm.py holds the QA ``mlfmm`` case. The FMM comparisons run the reference with its
 float32 near-block quadrature and static row sums in float64
 (``reference_in_float64``, as in tests/test_torch_fmm.py, whose docstring
 says why). Tests marked ``cuda`` run small_room.json on the card against
@@ -243,15 +242,6 @@ def test_qa_slfmm_case_matches_the_reference(tmp_path):
     assert got.name == ref.name == "sphere_scattering_ka0.5_slfmm"
     assert got.parameters == ref.parameters and got.metadata.solver == ref.metadata.solver
     assert abs(got.metrics.l2_relative / ref.metrics.l2_relative - 1) <= 1e-9
-
-
-def test_qa_mlfmm_case_names_slice_5b_before_assembly(tmp_path, monkeypatch):
-    import mathaudio_tpu_torch.bem.solver as bem_solver
-
-    for name in ("assemble_burton_miller", "assemble_collocation_matrix", "build_slfmm_system"):
-        _never_assembles(monkeypatch, bem_solver, name)
-    with pytest.raises(ValueError, match="slice 5b"):
-        qa.sphere_case(0.5, 1, str(tmp_path), 0, "mlfmm", **CPU64)
 
 
 def test_qa_tables_are_the_references():

@@ -147,15 +147,6 @@ def test_unported_options_name_their_slice(kind, option, slice_name):
         solver.BemSolver(types.BemSolverConfig(**option), **CPU64).solve(tp)
 
 
-def test_mlfmm_on_a_rigid_problem_names_slice_5b():
-    """The MLFMM tree is slice 5b; a mixed problem routes both FMM
-    assemblies through the SLFMM as the reference does
-    (tests/test_torch_fmm.py holds those against it)."""
-    _, tp = _problems("rigid")
-    with pytest.raises(ValueError, match="slice 5b"):
-        solver.BemSolver(types.BemSolverConfig(assembly=types.BemMethod.MLFMM), **CPU64).solve(tp)
-
-
 def test_fmm_field_evaluation_matches_reference():
     jp, tp = _problems("rigid")
     p = np.random.default_rng(9).normal(size=tp.mesh.num_elements) + 0.5j

@@ -47,7 +47,7 @@ def test_port_files_found():
                    "common/output.py", "utils/__init__.py", "utils/profiling.py", "bem/testing.py",
                    "apps/roomsim_bem.py", "apps/qa_suite_bem.py", "bem/fmm.py", "bem/octree.py",
                    "solvers/operators.py", "solvers/sparse.py", "solvers/preconditioners/ilu.py",
-                   "native/__init__.py"):
+                   "native/__init__.py", "bem/fmm_chip.py"):
         assert f"mathaudio_tpu_torch/{module}" in names
 
 
@@ -68,7 +68,7 @@ def test_import_leaves_jax_unloaded():
         "mathaudio_tpu_torch.wave, mathaudio_tpu_torch.common, mathaudio_tpu_torch.utils, "
         "mathaudio_tpu_torch.bem.testing, mathaudio_tpu_torch.apps.roomsim_bem, "
         "mathaudio_tpu_torch.apps.qa_suite_bem, mathaudio_tpu_torch.bem.fmm, "
-        "mathaudio_tpu_torch.bem.octree, mathaudio_tpu_torch.native, "
+        "mathaudio_tpu_torch.bem.octree, mathaudio_tpu_torch.bem.fmm_chip, mathaudio_tpu_torch.native, "
         "mathaudio_tpu_torch.solvers.preconditioners.ilu; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -118,7 +118,10 @@ def test_entry_points_refuse_to_drift_to_cpu(tmp_path):
                  lambda: fmm.translation_operator(1.0, np.ones((2, 3)), np.eye(3), 2),
                  lambda: evaluate_field_fmm(rigid.mesh, np.ones(n, complex),
                                             np.array([[0.0, 0.0, 2.0]]), 1.0),
-                 lambda: BemSolver(BemSolverConfig(assembly=BemMethod.SLFMM)).solve(rigid)):
+                 lambda: BemSolver(BemSolverConfig(assembly=BemMethod.SLFMM)).solve(rigid),
+                 lambda: fmm.build_mlfmm_tree_system(rigid.mesh, 1.0),
+                 lambda: fmm.build_mlfmm_system(rigid.mesh, 1.0),
+                 lambda: BemSolver(BemSolverConfig(assembly=BemMethod.MLFMM)).solve(rigid)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -600,3 +600,71 @@ def test_slice_5a_signature_is_the_reference(where, qualname):
     assert all(p.kind is inspect.Parameter.KEYWORD_ONLY for p in extras), extras
     if not qualname.startswith("_"):  # private helpers take them required
         assert all(p.default is None for p in extras), extras
+
+
+# --------------------------------------------------------------------------
+# Slice 5b: the multilevel FMM (the MLFMM tree with its mixed-BC build and
+# its gather/selection forms, the two-level MLFMM) and the cluster-major
+# solve. The extras are keyword-only ``dtype`` and ``device`` as in slice 5a.
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.bem.fmm_chip as jax_fmm_chip  # noqa: E402
+import mathaudio_tpu_torch.bem.fmm_chip as port_fmm_chip  # noqa: E402
+
+SLICE_5B_MODULES = {
+    "bem.fmm": (port_fmm, jax_fmm),
+    "bem.fmm_chip": (port_fmm_chip, jax_fmm_chip),
+}
+# The reference's other fmm_chip names (Planes, split_planes, join_planes,
+# fmm_chip_matvec_fn, fmm_chip_solve_fn, build_on_host) move complex
+# tensors as re/im planes for a TPU transport without complex numbers and
+# have no counterpart.
+SLICE_5B_FUNCTIONS = [("bem.fmm", q) for q in (
+    "_sph_harm_matrix", "sphere_interp_matrix", "MlfmmLevel", "MlfmmTreeData",
+    "_tree_gather_form", "MlfmmTreeOperator", "MlfmmTreeOperator.matvec",
+    "build_mlfmm_tree_system", "_tree_skeleton", "build_mlfmm_tree_mixed_system", "MlfmmData",
+    "MlfmmOperator", "MlfmmOperator.matvec", "build_mlfmm_system")] + [
+    ("bem.fmm_chip", "fmm_chip_solve_cm_fn")]
+# The one deliberate difference: the solve that fmm_chip_solve_cm_fn returns
+# takes operator objects and complex tensors, and returns x complex, where
+# the reference's takes and returns re/im planes.
+SLICE_5B_RETURNED = {
+    "fmm_chip_solve_cm_fn": (("op", "pre", "rhs"), ("op_planes", "pre_planes", "rhs_re", "rhs_im")),
+}
+
+
+def test_slice_5b_covers_the_multilevel_fmm():
+    assert len(SLICE_5B_FUNCTIONS) == 15
+    for where, qualname in SLICE_5B_FUNCTIONS:
+        port_mod, ref_mod = SLICE_5B_MODULES[where]
+        _resolve(port_mod, qualname), _resolve(ref_mod, qualname)
+    names = {q for _, q in SLICE_5A_FUNCTIONS + SLICE_5B_FUNCTIONS}
+    ref_classes_and_builders = [n for n in _public_callables(jax_fmm)
+                                if n.startswith(("Mlfmm", "build_mlfmm")) and "tree_" not in n]
+    assert ref_classes_and_builders and all(n in names for n in ref_classes_and_builders)
+
+
+@pytest.mark.parametrize("where,qualname", SLICE_5B_FUNCTIONS,
+                         ids=[f"{w}:{q}" for w, q in SLICE_5B_FUNCTIONS])
+def test_slice_5b_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE_5B_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    ref_names = {r.name for r in ref}
+    extras = [p for p in port if p.name in ("dtype", "device") and p.name not in ref_names]
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY for p in extras), extras
+    if not qualname.startswith("_"):  # private helpers take them required
+        assert all(p.default is None for p in extras), extras
+
+
+@pytest.mark.parametrize("factory", list(SLICE_5B_RETURNED))
+def test_slice_5b_returned_solve_takes_operators(factory):
+    port_params, ref_params = SLICE_5B_RETURNED[factory]
+    port = inspect.signature(getattr(port_fmm_chip, factory)()).parameters
+    ref = inspect.signature(getattr(jax_fmm_chip, factory)()).parameters
+    assert tuple(port) == port_params and tuple(ref) == ref_params
