@@ -78,6 +78,28 @@ Phases, each fatal on failure:
    time repeats;
 4. check the FEM answers: a 256-lane sub-band with the kernels vs with the
    twins on the card, and a small float64 sweep on the card vs on the CPU;
+   then (4c, "FEM sweep options", slice 6a) every FEM option of bench.py on
+   the card, each run counted (launch counts set to 0 just before, read
+   just after; peak memory; steady state the median of 3 synchronised
+   repeats after it; DoF-solves/s; iteration mean and max): the tp, stream
+   and stream16 transfers and the W and F cycles at path 1's shape and
+   knobs, each with every lane converged and within 1e-3 of max|p| of
+   phase 3's gather V sweep, every DIA mode launched; sweep_fn_jacobi at
+   the bench's GMRES knobs over the whole band (recorded: no lane converges
+   within 500 iterations there), then on every 8th wavenumber with the
+   restart raised from 6 to 60 (every lane converged, within 1e-3 of
+   max|p| of the gather V sweep); the vmapped ELL sweep as bench.py --sweep
+   vmapped runs it (2048 wavenumbers, cold, 16 anchors: the nested route)
+   against the node-major sweep at the same cold knobs (CGS2): every lane
+   converged, iteration means within 2%, pressures within 1e-3 of max|p|,
+   no DIA launch; one W cycle with fuse_diag=False (stored inverse
+   diagonals, the residual kernel) against the fused one (<= 1e-5); the DIA
+   shapes these runs launched that phase 2 did not time, held against the
+   twin and timed; and in float64 at n=8 (3 levels, 32 wavenumbers) each
+   option on the card against the CPU: iterations lane for lane, pressures
+   within 1e-9. Each counted option run's DIA launches stand beside the
+   main sweep's own in the kernels line (``launches_by_option``); the lone
+   fuse_diag cycle calls are no path and stay out of it;
 5. hold both BEM sweep kernels against their twins off the diagonal
    (relative Frobenius error per plane: float32 <= 1e-5 at the bench shape,
    at a ragged 300 x 300 shape and at large arguments, 9 wavenumbers up to
@@ -196,7 +218,8 @@ Phases, each fatal on failure:
    1e-7) converged with its surface rel L2 against the closed form
    <= 0.05; the phase prints its own seconds.
 With ``--profile``, once every phase has passed, one more run of each
-path (for path 5 a fit at maxiter 100) runs under torch.profiler and its
+path and of each FEM option (for path 5 a fit at maxiter 100) runs under
+torch.profiler and its
 device time is printed by kernel group and kernel, with the device's idle
 share of the wall time.
 
@@ -231,6 +254,12 @@ BENCH_N, BENCH_LEVELS, BENCH_FREQS, BENCH_CHUNK = 20, 3, 4096, 2048
 SWEEP_KNOBS = dict(mg_nu=1, mg_omega=1.0, mg_coarse_anchors=16, mg_cycle_type="v",
                    gmres_orth="cgs1", mg_transfers="gather", freq_chunk=BENCH_CHUNK,
                    warm_stride=64, warm_restart=3, warm_interp="cubic")
+# The float64 card-vs-CPU sweeps at n=8 (phases 4b and 4c): GMRES, knobs
+# and the band (32 wavenumbers).
+SMALL_KRYLOV = dict(max_iterations=500, tolerance=1e-5, restart=6)
+SMALL_KNOBS = dict(mg_nu=1, mg_omega=1.0, mg_coarse_anchors=4, gmres_orth="cgs1",
+                   freq_chunk=16, warm_stride=4, warm_restart=3, warm_interp="cubic")
+SMALL_BAND = (0.55, 2.2, 32)
 KERNEL_SOURCE = "mathaudio_tpu_torch/kernels/dia_stencil.cu"
 TPU_KERNEL = "mathaudio_tpu/fem/dia.py:212"
 MODES = ("matvec", "residual", "jacobi")
@@ -397,6 +426,79 @@ def graph_ms(fn, per_batch=10, batches=7):
     return time_ms(graph.replay, batches=batches, per_batch=1) / per_batch
 
 
+def _rand_complex(shape, cdtype, gen, dev):
+    import torch
+
+    rdt = torch.float32 if cdtype == torch.complex64 else torch.float64
+    re = torch.randn(shape, generator=gen, device=dev, dtype=rdt)
+    im = torch.randn(shape, generator=gen, device=dev, dtype=rdt)
+    return torch.complex(re, im)
+
+
+def _lanes(ks, shifted, cdtype, dev):
+    """The sweep's lane scalars (cm, cb) for wavenumbers ``ks``."""
+    import torch
+
+    k = ks.to(cdtype)
+    cm = (torch.tensor(1.0 + 0.5j, dtype=cdtype, device=dev) if shifted else 1.0) * (k * k)
+    cb = torch.tensor(-0.15j, dtype=cdtype, device=dev) * k
+    return cm.contiguous(), cb.contiguous()
+
+
+def stencil_check(dia, label, mode, offs, tabs, cm, cb, x, r, tol):
+    """One kernel call vs its twin on the same card inputs: returns the
+    max abs error; raises above ``tol`` (relative Frobenius)."""
+    import torch
+
+    twin = twin_stencil(dia)
+    got = dia.dia_stencil(mode, offs, tabs, cm, cb, x, r, 1.0)
+    ref = twin(mode, offs, tabs, cm, cb, x, r, 1.0)
+    torch.cuda.synchronize()
+    rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    max_abs = float(torch.max(torch.abs(got - ref)))
+    ok = rel <= tol and bool(torch.isfinite(got).all())
+    log(f"kernel {label} {mode}{'(x=0)' if x is None else ''}: "
+        f"rel err {rel:.3e} (tol {tol:g}), max abs err {max_abs:.3e}")
+    if not ok:
+        raise AssertionError(f"{label} {mode}: kernel disagrees with its twin ({rel:.3e})")
+    return max_abs
+
+
+def stencil_record(dia, label, mode, offs, tabs, cm, cb, x_in, r_in, dev, library=None):
+    """Check one launch shape against the twin and time it: the kernel
+    from Python and in a CUDA graph, each tile height, the twin, the
+    sparse yardstick (when given), and the bound."""
+    import torch
+
+    n, nf = tabs.k.shape[1], cm.shape[0]
+    tag = f"{mode}{'(x=0)' if x_in is None else ''}"
+    max_abs = stencil_check(dia, f"c64 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x_in,
+                            r_in, 1e-5)
+    twin = twin_stencil(dia)
+    ms = time_ms(lambda: dia.dia_stencil(mode, offs, tabs, cm, cb, x_in, r_in, 1.0))
+    plain_ms = time_ms(lambda: twin(mode, offs, tabs, cm, cb, x_in, r_in, 1.0),
+                       batches=3, per_batch=3)
+    sparse_ms = None
+    if library is not None and x_in is not None:
+        sparse_ms = time_ms(lambda: library(mode, cm, cb, x_in, r_in), batches=3, per_batch=3)
+    b_ms, b_by = bound(mode, n, nf, offs, torch.complex64, from_zero=x_in is None)
+    on_card = graph_ms(lambda: dia.dia_stencil(mode, offs, tabs, cm, cb, x_in, r_in, 1.0))
+    # every tile height the kernel has, for comparison with the plan's pick
+    by_rows = {p: graph_ms(lambda: dia.dia_stencil(mode, offs, tabs, cm, cb, x_in, r_in,
+                                                   rows_per_thread=p))
+               for p in dia.ROWS_PER_THREAD}
+    picked = dia.stencil_plan(offs, n, nf, 8, torch.cuda.get_device_properties(
+        dev).multi_processor_count).rows_per_thread
+    log(f"  {label} N={n} F={nf} {tag}: kernel {ms:.4f} ms, in a graph {on_card:.4f} ms "
+        f"(rows per thread {picked}), twin {plain_ms:.4f} ms, sparse "
+        f"{'-' if sparse_ms is None else f'{sparse_ms:.4f}'} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), {100 * b_ms / on_card:.1f}% of bound; in a graph by rows per "
+        f"thread {({p: round(t, 4) for p, t in by_rows.items()})}")
+    return dict(shape=f"{n}x{nf}", x0=x_in is None, max_abs_err=max_abs, ms=ms,
+                graph_ms=on_card, plain_ms=plain_ms, sparse_ms=sparse_ms, bound_ms=b_ms,
+                bound_by=b_by, rows_per_thread=picked, graph_ms_by_rows_per_thread=by_rows)
+
+
 def kernel_phase(dia, nm, dev, dtype_small_nm, ks_all):
     """Each mode (and the x = 0 Jacobi step) vs its twin, timed, at every
     shape the sweep launches: both smoothing levels at the chunk's 2048
@@ -407,34 +509,7 @@ def kernel_phase(dia, nm, dev, dtype_small_nm, ks_all):
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def rand(shape, cdtype):
-        rdt = torch.float32 if cdtype == torch.complex64 else torch.float64
-        re = torch.randn(shape, generator=gen, device=dev, dtype=rdt)
-        im = torch.randn(shape, generator=gen, device=dev, dtype=rdt)
-        return torch.complex(re, im)
-
-    def lanes(ks, shifted, cdtype):
-        k = ks.to(cdtype)
-        cm = (torch.tensor(1.0 + 0.5j, dtype=cdtype, device=dev) if shifted else 1.0) * (k * k)
-        cb = torch.tensor(-0.15j, dtype=cdtype, device=dev) * k
-        return cm.contiguous(), cb.contiguous()
-
-    twin = twin_stencil(dia)
-
-    def run(mode, offs, tabs, cm, cb, x, r, kernel):
-        return (dia.dia_stencil if kernel else twin)(mode, offs, tabs, cm, cb, x, r, 1.0)
-
-    def check(label, mode, offs, tabs, cm, cb, x, r, tol):
-        got = run(mode, offs, tabs, cm, cb, x, r, True)
-        ref = run(mode, offs, tabs, cm, cb, x, r, False)
-        torch.cuda.synchronize()
-        rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
-        max_abs = float(torch.max(torch.abs(got - ref)))
-        ok = rel <= tol and bool(torch.isfinite(got).all())
-        log(f"kernel {label} {mode}{'(x=0)' if x is None else ''}: "
-            f"rel err {rel:.3e} (tol {tol:g}), max abs err {max_abs:.3e}")
-        if not ok:
-            raise AssertionError(f"{label} {mode}: kernel disagrees with its twin ({rel:.3e})")
-        return max_abs
+        return _rand_complex(shape, cdtype, gen, dev)
 
     params = nm.params()
     levels = [("fine", params.offsets[0], params.fine_tables, False),
@@ -444,43 +519,19 @@ def kernel_phase(dia, nm, dev, dtype_small_nm, ks_all):
         library = sparse_yardstick(dia, offs, tabs)
         n = tabs.k.shape[1]
         for nf in (BENCH_CHUNK, BENCH_CHUNK // SWEEP_KNOBS["warm_stride"]):
-            cm, cb = lanes(ks_all[:nf], shifted, torch.complex64)
+            cm, cb = _lanes(ks_all[:nf], shifted, torch.complex64, dev)
             x, r = rand((n, nf), torch.complex64), rand((n, nf), torch.complex64)
             for mode, x_in in [(m, x) for m in MODES] + [("jacobi", None)]:
                 r_in = None if mode == "matvec" else r
-                tag = f"{mode}{'(x=0)' if x_in is None else ''}"
-                max_abs = check(f"c64 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x_in, r_in,
-                                1e-5)
-                ms = time_ms(lambda: run(mode, offs, tabs, cm, cb, x_in, r_in, True))
-                plain_ms = time_ms(lambda: run(mode, offs, tabs, cm, cb, x_in, r_in, False),
-                                   batches=3, per_batch=3)
-                sparse_ms = None
-                if x_in is not None:
-                    sparse_ms = time_ms(lambda: library(mode, cm, cb, x_in, r_in), batches=3,
-                                        per_batch=3)
-                b_ms, b_by = bound(mode, n, nf, offs, torch.complex64, from_zero=x_in is None)
-                on_card = graph_ms(lambda: run(mode, offs, tabs, cm, cb, x_in, r_in, True))
-                # every tile height the kernel has, for comparison with the plan's pick
-                by_rows = {p: graph_ms(lambda: dia.dia_stencil(mode, offs, tabs, cm, cb, x_in, r_in,
-                                                               rows_per_thread=p))
-                           for p in dia.ROWS_PER_THREAD}
-                picked = dia.stencil_plan(offs, n, nf, 8, torch.cuda.get_device_properties(
-                    dev).multi_processor_count).rows_per_thread
-                log(f"  {label} N={n} F={nf} {tag}: kernel {ms:.4f} ms, in a graph {on_card:.4f} ms "
-                    f"(rows per thread {picked}), twin {plain_ms:.4f} ms, sparse "
-                    f"{'-' if sparse_ms is None else f'{sparse_ms:.4f}'} ms, bound {b_ms:.4f} ms "
-                    f"({b_by}), {100 * b_ms / on_card:.1f}% of bound; in a graph by rows per "
-                    f"thread {({p: round(t, 4) for p, t in by_rows.items()})}")
-                records[(mode, n, nf, x_in is None)] = dict(
-                    shape=f"{n}x{nf}", x0=x_in is None, max_abs_err=max_abs, ms=ms,
-                    graph_ms=on_card, plain_ms=plain_ms, sparse_ms=sparse_ms, bound_ms=b_ms,
-                    bound_by=b_by, rows_per_thread=picked, graph_ms_by_rows_per_thread=by_rows)
+                records[(mode, n, nf, x_in is None)] = stencil_record(
+                    dia, label, mode, offs, tabs, cm, cb, x_in, r_in, dev, library)
         # ragged lane counts: one lane, and partial warps and blocks
         for nf in (1, 37):
-            cm, cb = lanes(ks_all[:nf], shifted, torch.complex64)
+            cm, cb = _lanes(ks_all[:nf], shifted, torch.complex64, dev)
             x, r = rand((n, nf), torch.complex64), rand((n, nf), torch.complex64)
             for mode, x_in in [(m, x) for m in MODES] + [("jacobi", None)]:
-                check(f"c64 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x_in, r, 1e-5)
+                stencil_check(dia, f"c64 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x_in,
+                              r, 1e-5)
 
     # complex128 at a small shape
     p64 = dtype_small_nm.params()
@@ -488,36 +539,269 @@ def kernel_phase(dia, nm, dev, dtype_small_nm, ks_all):
                                        ("level1", p64.offsets[1], p64.levels[1].tables, True)]:
         n = tabs.k.shape[1]
         for nf in (1, 37, 64):
-            cm, cb = lanes(torch.linspace(0.55, 2.2, nf, dtype=torch.float64, device=dev),
-                           shifted, torch.complex128)
+            cm, cb = _lanes(torch.linspace(0.55, 2.2, nf, dtype=torch.float64, device=dev),
+                            shifted, torch.complex128, dev)
             x, r = rand((n, nf), torch.complex128), rand((n, nf), torch.complex128)
             for mode in MODES:
-                check(f"c128 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x, r, 1e-12)
-            check(f"c128 {label} N={n} F={nf}", "jacobi", offs, tabs, cm, cb, None, r, 1e-12)
+                stencil_check(dia, f"c128 {label} N={n} F={nf}", mode, offs, tabs, cm, cb, x, r,
+                              1e-12)
+            stencil_check(dia, f"c128 {label} N={n} F={nf}", "jacobi", offs, tabs, cm, cb, None,
+                          r, 1e-12)
     return records
 
 
-def dia_entries(records, by_shape):
+def dia_entries(records, by_shape, option_shapes=None, cycle_shapes=None):
     """The DIA entries of the kernels line: each mode at the fine level's
-    full chunk, its other launch shapes beside it, each with the launches
-    the counted sweep made at it. Fails if the sweep launched a shape
-    phase 2 did not time."""
-    untimed = sorted(set(by_shape) - set(records))
+    full chunk, its other launch shapes beside it. ``launches`` is the
+    counted main sweep's own count; each FEM sweep option's counted run
+    stands beside it under ``launches_by_option`` (``option_shapes``:
+    {option: {shape: count}}). ``cycle_shapes`` are launches of lone
+    cycle calls, not paths: they only join the check that every launched
+    shape was timed. Fails if a run launched a shape that phase 2 or the
+    options phase did not time."""
+    option_shapes = option_shapes or {}
+    launched = set(by_shape).union(*(set(v) for v in option_shapes.values()),
+                                   *(set(v) for v in (cycle_shapes or {}).values()))
+    untimed = sorted(launched - set(records))
     if untimed:
-        raise AssertionError(f"the sweep launched DIA shapes phase 2 did not time: {untimed}")
+        raise AssertionError(f"a counted run launched DIA shapes no phase timed: {untimed}")
     main_n = max(key[1] for key in records)
     entries = []
     for mode in MODES:
         main = (mode, main_n, BENCH_CHUNK, False)
-        others = [dict(records[key], launches=by_shape.get(key, 0))
+
+        def by_option(key):
+            return {opt: shapes[key] for opt, shapes in option_shapes.items() if key in shapes}
+
+        others = [dict(records[key], launches=by_shape.get(key, 0),
+                       launches_by_option=by_option(key))
                   for key in sorted(records) if key[0] == mode and key != main]
         rec = {k: v for k, v in records[main].items() if k != "x0"}
         entries.append(dict(name=f"dia_stencil_{mode}", route="cuda", source=KERNEL_SOURCE,
                             replaces=TPU_KERNEL,
                             launches=sum(v for k, v in by_shape.items() if k[0] == mode),
                             library_ms=None, **rec, other_shapes=others,
-                            launches_at_shape=by_shape.get(main, 0)))
+                            launches_at_shape=by_shape.get(main, 0),
+                            launches_by_option={
+                                opt: sum(v for k, v in shapes.items() if k[0] == mode)
+                                for opt, shapes in option_shapes.items()}))
     return entries
+
+
+# The FEM sweep options (slice 6a): each run against the gather V sweep of
+# phase 3 (same knobs otherwise), gated to this share of max|p|.
+OPTION_RUNS = (("tp", dict(mg_transfers="tp")), ("stream", dict(mg_transfers="stream")),
+               ("stream16", dict(mg_transfers="stream16")), ("w", dict(mg_cycle_type="w")),
+               ("f", dict(mg_cycle_type="f")))
+OPTION_TOL = 1e-3
+# sweep_fn_jacobi: at the bench's GMRES knobs over the whole band (recorded,
+# not gated: Jacobi-GMRES(6) converges no lane of the n=20 room within 500
+# iterations), then gated (every lane converged, OPTION_TOL against the
+# gather V sweep) on every JACOBI_STRIDE-th wavenumber at restart 60.
+JACOBI_STRIDE, JACOBI_RESTART = 8, 60
+# The vmapped ELL sweep as bench.py --sweep vmapped runs it: 2048
+# wavenumbers, one chunk, cold, 16 anchors (128 lanes each: the nested route).
+VMAPPED_FREQS, VMAPPED_ANCHORS, VMAPPED_ITER_TOL = 2048, 16, 0.02
+
+
+def counted_sweep(dia, label, run, dev, n_nodes, n_lanes, repeats=3):
+    """One counted run (launch counts set to 0 just before, read just
+    after; peak memory), then the median of ``repeats`` synchronised
+    repeats. Returns ((p, its, conv), summary, DIA launches by shape)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dia.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = {m: c for m, c in dia.LAUNCHES.items() if c}
+    by_shape = dict(dia.LAUNCHES_BY_SHAPE)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = median_ms(run, repeats)
+    p, its, conv = out
+    its_f = its.float()
+    summary = dict(ms=ms, dof_per_s=n_nodes * n_lanes / (ms / 1e3),
+                   iterations_mean=float(its_f.mean()), iterations_max=int(its.max()),
+                   converged=int(conv.sum()), lanes=n_lanes, peak_gib=peak, launches=launches)
+    log(f"options {label}: {n_lanes} x {n_nodes}: first run {first:.3f} s, steady state "
+        f"{ms:.1f} ms (median of {repeats}), {summary['dof_per_s']:.4e} DoF-solves/s, iterations mean "
+        f"{summary['iterations_mean']:.3f} max {summary['iterations_max']}, converged "
+        f"{summary['converged']}/{n_lanes}, peak memory {peak:.2f} GiB, DIA launches {launches}")
+    for (mode, n, nf, x0), count in sorted(by_shape.items()):
+        log(f"  options {label} DIA launches {mode}{'(x=0)' if x0 else ''} at {n} x {nf}: {count}")
+    return out, summary, by_shape
+
+
+def max_rel_diff(p, ref):
+    import torch
+
+    return float(torch.max(torch.abs(p - ref)) / torch.max(torch.abs(ref)))
+
+
+def options_phase(dia, nm, dev, ks, config, p_gather, small, records):
+    """The FEM sweep options of the main path on the card (slice 6a): the
+    tp, stream and stream16 transfers and the W and F cycles at the bench
+    shape against phase 3's gather V sweep; sweep_fn_jacobi; the vmapped
+    ELL sweep as bench.py --sweep vmapped runs it against the node-major
+    sweep at the same cold knobs; one cycle with stored inverse diagonals
+    (fuse_diag=False) against the fused one; and each option in float64 at
+    n=8 on the card against the CPU. DIA shapes a run launched that phase 2
+    did not time are checked and timed here (added to ``records``).
+    Returns ({option: DIA launches by shape}, {cycle call: DIA launches by
+    shape}, {label: run} for --profile, {option: summary})."""
+    import torch
+
+    from mathaudio_tpu_torch.fem.multigrid import build_coarse_inv_chain
+    from mathaudio_tpu_torch.fem.multigrid_batched import make_dia_mg, mg_cycle_batched
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig
+
+    t_phase = time.perf_counter()
+    params = nm.params()
+    n_nodes = params.rhs.shape[0]
+    option_shapes, cycle_shapes, runs, summaries = {}, {}, {}, {}
+
+    # (a) transfers and cycles at the bench shape, every lane converged,
+    # each within OPTION_TOL of the gather V sweep
+    for label, extra in OPTION_RUNS:
+        sweep = nm.sweep_fn(config, **{**SWEEP_KNOBS, **extra})
+        run = lambda sweep=sweep: sweep(params, ks)  # noqa: E731
+        (p, its, conv), summary, by_shape = counted_sweep(dia, label, run, dev, n_nodes,
+                                                          ks.shape[0])
+        err = max_rel_diff(p, p_gather)
+        summary["max_dp_vs_gather"] = err
+        log(f"options {label}: max|dp| {err:.3e} of max|p| against the gather V sweep "
+            f"(limit {OPTION_TOL:g})")
+        if summary["converged"] != ks.shape[0] or not err <= OPTION_TOL:
+            raise AssertionError(f"options {label}: {summary['converged']}/{ks.shape[0]} "
+                                 f"converged, max|dp| {err:.3e}")
+        if any(summary["launches"].get(m, 0) == 0 for m in MODES):
+            raise AssertionError(f"options {label}: a DIA kernel mode was not launched: "
+                                 f"{summary['launches']}")
+        option_shapes[label], runs[f"options {label}"], summaries[label] = by_shape, run, summary
+
+    # (b) sweep_fn_jacobi: the bench's knobs over the whole band (recorded),
+    # then the gated reduced band
+    jac = nm.sweep_fn_jacobi(config)
+    run = lambda: jac(params, ks)  # noqa: E731
+    # every lane runs to the iteration cap: one repeat times it
+    _, summary, by_shape = counted_sweep(dia, "jacobi (bench knobs)", run, dev, n_nodes,
+                                         ks.shape[0], repeats=1)
+    log(f"options jacobi: at restart {config.restart}, {config.max_iterations} iterations, "
+        f"{summary['converged']}/{ks.shape[0]} lanes converge (recorded, not gated)")
+    option_shapes["jacobi_bench"], summaries["jacobi_bench"] = by_shape, summary
+    ks_j = ks[::JACOBI_STRIDE].contiguous()
+    jac_cfg = config._replace(restart=JACOBI_RESTART)
+    jac = nm.sweep_fn_jacobi(jac_cfg)
+    run = lambda: jac(params, ks_j)  # noqa: E731
+    (p, _, conv), summary, by_shape = counted_sweep(
+        dia, f"jacobi (every {JACOBI_STRIDE}th wavenumber, restart {JACOBI_RESTART})", run, dev,
+        n_nodes, ks_j.shape[0])
+    err = max_rel_diff(p, p_gather[::JACOBI_STRIDE])
+    summary["max_dp_vs_gather"] = err
+    log(f"options jacobi reduced band: max|dp| {err:.3e} of max|p| against the gather V sweep "
+        f"(limit {OPTION_TOL:g})")
+    if (summary["converged"] != ks_j.shape[0] or not err <= OPTION_TOL
+            or summary["launches"].get("matvec", 0) == 0):
+        raise AssertionError(f"options jacobi: {summary['converged']}/{ks_j.shape[0]} converged, "
+                             f"max|dp| {err:.3e}, launches {summary['launches']}")
+    option_shapes["jacobi"], runs["options jacobi"], summaries["jacobi"] = by_shape, run, summary
+
+    # (c) the vmapped ELL sweep against the node-major sweep, same cold knobs
+    ks_v = torch.linspace(0.55, 2.2, VMAPPED_FREQS, dtype=ks.dtype, device=dev)
+    cold = dict(mg_nu=1, mg_omega=1.0, mg_coarse_anchors=VMAPPED_ANCHORS, mg_cycle_type="v")
+    vm = nm.model.sweep_fn(config, mg_builder=nm.mg.builder, **cold)
+    run = lambda: vm(nm.model.params(), ks_v)  # noqa: E731
+    (p_v, its_v, conv_v), summary, by_shape = counted_sweep(dia, "vmapped", run, dev, n_nodes,
+                                                            VMAPPED_FREQS)
+    runs["options vmapped"], summaries["vmapped"] = run, summary
+    nm_cold = nm.sweep_fn(config, gmres_orth="cgs2", **cold)
+    run = lambda: nm_cold(params, ks_v)  # noqa: E731
+    (p_n, its_n, _), summary_n, by_shape_n = counted_sweep(dia, "node-major cold cgs2", run, dev,
+                                                           n_nodes, VMAPPED_FREQS)
+    option_shapes["nm_cold"], summaries["nm_cold"] = by_shape_n, summary_n
+    err = max_rel_diff(p_v, p_n)
+    it_gap = abs(summary["iterations_mean"] - summary_n["iterations_mean"]) / summary_n[
+        "iterations_mean"]
+    lanes_equal = int((its_v == its_n).sum())
+    summaries["vmapped"].update(max_dp_vs_nm=err, iterations_mean_gap=it_gap,
+                                lanes_equal_iterations=lanes_equal)
+    log(f"options vmapped vs node-major: max|dp| {err:.3e} of max|p| (limit {OPTION_TOL:g}), "
+        f"iteration means {summary['iterations_mean']:.4f} / {summary_n['iterations_mean']:.4f} "
+        f"({100 * it_gap:.2f}% apart, limit {100 * VMAPPED_ITER_TOL:g}%), equal iterations on "
+        f"{lanes_equal}/{VMAPPED_FREQS} lanes, DIA launches {summary['launches']} (none expected)")
+    if (summary["converged"] != VMAPPED_FREQS or not err <= OPTION_TOL
+            or not it_gap <= VMAPPED_ITER_TOL or summary["launches"]):
+        raise AssertionError("options vmapped: disagrees with the node-major sweep")
+
+    # (d) fuse_diag=False: stored inverse diagonals, the residual kernel and
+    # one elementwise update, against the fused Jacobi kernel, one W cycle
+    chunk = ks[:BENCH_CHUNK].contiguous()
+    na = SWEEP_KNOBS["mg_coarse_anchors"]
+    cd = params.rhs.dtype
+    anchor_ks = chunk.reshape(na, -1).mean(dim=1)
+    anchor_inv = build_coarse_inv_chain(params.mg_builder, anchor_ks,
+                                        torch.tensor(-1j * nm.absorption, dtype=cd, device=dev)
+                                        * anchor_ks.to(cd))
+    gen = torch.Generator(device=dev).manual_seed(77)
+    r = _rand_complex((n_nodes, BENCH_CHUNK), cd, gen, dev)
+    out = {}
+    for fuse in (True, False):
+        mgp = make_dia_mg(params.offsets, params.levels, chunk, nm.absorption, anchor_inv,
+                          fuse_diag=fuse)
+        cyc = lambda mgp=mgp: mg_cycle_batched(mgp, params.offsets, r, omega=1.0, nu=1,  # noqa
+                                               cycle="w")
+        dia.reset_launches()
+        out[fuse] = cyc()
+        torch.cuda.synchronize()
+        launches = {m: c for m, c in dia.LAUNCHES.items() if c}
+        cycle_shapes[f"w_cycle_fuse_diag_{fuse}"] = dict(dia.LAUNCHES_BY_SHAPE)
+        ms = median_ms(cyc)
+        log(f"options fuse_diag={fuse}: one W cycle at {n_nodes} x {BENCH_CHUNK}: {ms:.2f} ms, "
+            f"DIA launches {launches}")
+    err = max_rel_diff(out[False], out[True])
+    log(f"options fuse_diag=False vs True: max|dx| {err:.3e} of max|x| (limit 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"options fuse_diag=False disagrees with the fused cycle ({err:.3e})")
+
+    # DIA shapes the option runs launched that phase 2 did not time
+    fine = (params.offsets[0], params.fine_tables, False)
+    level1 = (params.offsets[1], params.levels[1].tables, True)
+    by_n = {params.fine_tables.k.shape[1]: ("fine", *fine),
+            params.levels[1].tables.k.shape[1]: ("level1", *level1)}
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    for key in sorted(set().union(*option_shapes.values(), *cycle_shapes.values())
+                      - set(records)):
+        mode, n, nf, x0 = key
+        label, offs, tabs, shifted = by_n[n]
+        cm, cb = _lanes(ks[:nf], shifted, torch.complex64, dev)
+        x = None if x0 else _rand_complex((n, nf), torch.complex64, gen, dev)
+        r = None if mode == "matvec" else _rand_complex((n, nf), torch.complex64, gen, dev)
+        records[key] = stencil_record(dia, f"options {label}", mode, offs, tabs, cm, cb, x, r,
+                                      dev)
+
+    # (e) float64 at n=8: each option on the card against the port on the CPU
+    small_cfg = KrylovConfig(**SMALL_KRYLOV)
+    ks_small = torch.linspace(*SMALL_BAND, dtype=torch.float64)
+    cases = [(label, lambda snm, extra=extra: snm.sweep_fn(small_cfg, **{**SMALL_KNOBS, **extra})(
+        snm.params(), ks_small)) for label, extra in OPTION_RUNS]
+    cases.append(("jacobi", lambda snm: snm.sweep_fn_jacobi(small_cfg._replace(restart=30))(
+        snm.params(), ks_small)))
+    cases.append(("vmapped", lambda snm: snm.model.sweep_fn(
+        small_cfg, mg_builder=snm.mg.builder, mg_nu=1, mg_omega=1.0,
+        mg_coarse_anchors=SMALL_KNOBS["mg_coarse_anchors"])(snm.model.params(), ks_small)))
+    for label, case in cases:
+        (pg, ig, cg), (pc, ic, cc) = ((t.cpu() for t in case(small[w])) for w in ("cuda", "cpu"))
+        s_err = max_rel_diff(pg, pc)
+        it_diff = int(torch.max(torch.abs(ig - ic)))
+        log(f"options f64 n=8 {label} card vs CPU: pressure max err {s_err:.3e} (limit 1e-09), "
+            f"iteration diff max {it_diff} (limit 0), converged {int(cg.sum())}/{int(cc.sum())}")
+        if s_err > 1e-9 or it_diff or not bool(cg.all()) or not bool(cc.all()):
+            raise AssertionError(f"options f64 {label}: the card disagrees with the CPU")
+    log(f"options: phase took {time.perf_counter() - t_phase:.1f} s")
+    return option_shapes, cycle_shapes, runs, summaries
 
 
 def twin_stencil(dia):
@@ -2639,7 +2923,6 @@ def main() -> int:
         raise AssertionError(f"a kernel was not launched on the main path: {launches}")
     for (mode, n, nf, x0), count in sorted(by_shape.items()):
         log(f"  sweep DIA launches {mode}{'(x=0)' if x0 else ''} at {n} x {nf}: {count}")
-    dia_line = dia_entries(records, by_shape)
     if n_conv != BENCH_FREQS:
         raise AssertionError(f"only {n_conv}/{BENCH_FREQS} frequencies converged")
     if tuple(p.shape) != (BENCH_FREQS, 2) or not bool(torch.isfinite(p).all()):
@@ -2676,19 +2959,22 @@ def main() -> int:
         raise AssertionError("sweep with kernels disagrees with the sweep with twins")
 
     # 4b. small float64 sweep: card (complex128 kernel) vs CPU (twins)
-    small_cfg = KrylovConfig(max_iterations=500, tolerance=1e-5, restart=6)
-    small_knobs = dict(mg_nu=1, mg_omega=1.0, mg_coarse_anchors=4, gmres_orth="cgs1",
-                       freq_chunk=16, warm_stride=4, warm_restart=3, warm_interp="cubic")
-    ks_small = torch.linspace(0.55, 2.2, 32, dtype=torch.float64)
+    small_cfg = KrylovConfig(**SMALL_KRYLOV)
+    ks_small = torch.linspace(*SMALL_BAND, dtype=torch.float64)
     out = {}
     for where, snm in small.items():
-        out[where] = snm.sweep_fn(small_cfg, **small_knobs)(snm.params(), ks_small)
+        out[where] = snm.sweep_fn(small_cfg, **SMALL_KNOBS)(snm.params(), ks_small)
     (pg, ig, cg), (pc, ic, cc) = ((t.cpu() for t in out[w]) for w in ("cuda", "cpu"))
     s_err = float(torch.max(torch.abs(pg - pc)) / torch.max(torch.abs(pc)))
     log(f"small f64 sweep card vs CPU: pressure max err {s_err:.3e}, "
         f"iterations equal {bool(torch.equal(ig, ic))}, converged {int(cg.sum())}/{int(cc.sum())}")
     if s_err > 1e-9 or not torch.equal(ig, ic) or not bool(cg.all()):
         raise AssertionError("float64 sweep on the card disagrees with the CPU")
+
+    # 4c. slice 6a: every FEM sweep option of the main path
+    option_shapes, cycle_shapes, option_runs, _ = options_phase(dia, nm, dev, ks, config, p,
+                                                                small, records)
+    dia_line = dia_entries(records, by_shape, option_shapes, cycle_shapes)
 
     # 5-10. paths 2 and 3, the dense BEM sweep and the single-frequency engines
     bem_records, bem_runs = bem_path(dev, (dia, bem_assembly))
@@ -2724,6 +3010,8 @@ def main() -> int:
     # profiles last, once every kernel has run
     if profile:
         profile_run("fem", lambda: sweep(params, ks), "dia_stencil")
+        for label, run in option_runs.items():
+            profile_run(label, run, "dia_stencil")
         for label, run in bem_runs.items():
             profile_run(label, run, "bem_pairwise")
         profile_run("iir cascade", iir_run, None)

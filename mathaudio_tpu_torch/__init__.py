@@ -9,3 +9,12 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+from mathaudio_tpu_torch.xtypes import (  # noqa: F401
+    default_float,
+    default_complex,
+    complex_dtype_for,
+    SPEED_OF_SOUND,
+    AIR_DENSITY,
+    REFERENCE_PRESSURE,
+)

@@ -5,7 +5,7 @@ with LU or GMRES, or the matrix-free SLFMM with GMRES), BemSolution
 are the SLFMM and, for rigid problems, the MLFMM tree; mixed problems run
 the SLFMM under either, as the reference does.
 
-The BiCGStab/CGS/QMRCGStab solvers (slice 6) and the device-mesh sharding
+The BiCGStab/CGS/QMRCGStab solvers (slice 6b) and the device-mesh sharding
 (slice 8) are later slices of the port; each raises a ``ValueError`` that
 names its slice.
 """
@@ -142,7 +142,7 @@ class BemSolver:
     def _check_config(self) -> None:
         cfg = self.config
         if cfg.method not in _PORTED_METHODS:
-            raise ValueError(f"solver method {cfg.method.value!r} is not ported yet (slice 6, "
+            raise ValueError(f"solver method {cfg.method.value!r} is not ported yet (slice 6b, "
                              "the rest of the solvers); use LU or GMRES")
         if cfg.device_mesh is not None:
             raise ValueError("device_mesh sharding is not ported yet (slice 8, multi-GPU); "

@@ -6,6 +6,8 @@
 ``np.asarray`` over the tree) and returns the port's ``NodeMajorParams``
 on ``device``. It reads fields by name and never imports JAX. The static
 DIA offsets are rebuilt from each level's ``row_of_slot``/``col_of_slot``.
+``room_params_from_numpy`` does the same for the frequency-major sweep's
+``RoomParams``, and ``mg_builder_from_numpy`` for an ``MgBuilder``.
 ``sweep_statics_from_numpy`` does the same for the dense BEM sweep's
 ``SweepStatics``.
 
@@ -33,8 +35,42 @@ from mathaudio_tpu_torch.dsp.iir import Biquad, BiquadFilterType, Peq
 from mathaudio_tpu_torch.fem.dia import DiaTables, dia_pattern
 from mathaudio_tpu_torch.fem.multigrid import MgBuilder, MgBuilderLevel
 from mathaudio_tpu_torch.fem.multigrid_batched import DiaLevel
+from mathaudio_tpu_torch.models.helmholtz_room import RoomParams
 from mathaudio_tpu_torch.models.room_sweep_nm import NodeMajorParams
 from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
+
+
+def _converters(device, dtype):
+    def real(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def index(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    return real, index
+
+
+def mg_builder_from_numpy(tree, device=None, dtype=None) -> MgBuilder:
+    """Port an ``MgBuilder`` from the reference's numpy-leaved tree;
+    ``dtype`` is the real dtype (default float32)."""
+    real, index = _converters(resolve_device(device), dtype or default_float())
+    return MgBuilder(tuple(
+        MgBuilderLevel(
+            k_vals=real(bl.k_vals),
+            m_vals=real(bl.m_vals),
+            b_sum=real(bl.b_sum),
+            csr2ell=index(bl.csr2ell),
+            ell_indices=index(bl.ell_indices),
+            row_of_slot=index(bl.row_of_slot),
+            col_of_slot=index(bl.col_of_slot),
+            p_idx=index(bl.p_idx),
+            p_w=real(bl.p_w),
+            r_idx=index(bl.r_idx),
+            r_w=real(bl.r_w),
+            num_nodes=int(np.asarray(bl.ell_indices).shape[0]),
+        )
+        for bl in tree.levels
+    ))
 
 
 def node_major_params_from_numpy(tree, device=None, dtype=None) -> NodeMajorParams:
@@ -44,12 +80,7 @@ def node_major_params_from_numpy(tree, device=None, dtype=None) -> NodeMajorPara
     become the matching complex dtype, indices int64."""
     dtype = dtype or default_float()
     device = resolve_device(device)
-
-    def real(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-
-    def index(a):
-        return torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+    real, index = _converters(device, dtype)
 
     def tables(t):
         return DiaTables(*(real(getattr(t, f)) for f in DiaTables._fields))
@@ -60,22 +91,6 @@ def node_major_params_from_numpy(tree, device=None, dtype=None) -> NodeMajorPara
         tabs = fine if l == 0 else tables(lv.tables)
         levels.append(DiaLevel(tabs, index(lv.p_idx), real(lv.p_w), index(lv.r_idx), real(lv.r_w)))
 
-    builder_levels = []
-    for bl in tree.mg_builder.levels:
-        rows = np.asarray(bl.row_of_slot)
-        builder_levels.append(MgBuilderLevel(
-            k_vals=real(bl.k_vals),
-            m_vals=real(bl.m_vals),
-            b_sum=real(bl.b_sum),
-            row_of_slot=index(rows),
-            col_of_slot=index(bl.col_of_slot),
-            p_idx=index(bl.p_idx),
-            p_w=real(bl.p_w),
-            r_idx=index(bl.r_idx),
-            r_w=real(bl.r_w),
-            num_nodes=int(rows.max()) + 1,  # every P1 row holds its diagonal
-        ))
-
     offsets = tuple(
         dia_pattern(bl.row_of_slot, bl.col_of_slot)[0]
         for bl in tree.mg_builder.levels[: len(tree.levels)]
@@ -84,8 +99,29 @@ def node_major_params_from_numpy(tree, device=None, dtype=None) -> NodeMajorPara
         offsets=offsets,
         fine_tables=fine,
         levels=tuple(levels),
-        mg_builder=MgBuilder(tuple(builder_levels)),
+        mg_builder=mg_builder_from_numpy(tree.mg_builder, device, dtype),
         rhs=torch.tensor(np.asarray(tree.rhs), dtype=complex_dtype_for(dtype), device=device),
+        listen_idx=index(tree.listen_idx),
+        tp=tuple(tuple(real(m) for m in level_tp) for level_tp in tree.tp),
+    )
+
+
+def room_params_from_numpy(tree, device=None, dtype=None) -> RoomParams:
+    """Port ``RoomParams`` (the frequency-major sweep's state) from the
+    reference's numpy-leaved tree, reading its fields by name; ``dtype``
+    is the real dtype (default float32)."""
+    dtype = dtype or default_float()
+    real, index = _converters(resolve_device(device), dtype)
+    return RoomParams(
+        k_vals=real(tree.k_vals),
+        m_vals=real(tree.m_vals),
+        b_sum=real(tree.b_sum),
+        rhs=torch.tensor(np.asarray(tree.rhs), dtype=complex_dtype_for(dtype),
+                         device=resolve_device(device)),
+        ell_indices=index(tree.ell_indices),
+        csr2ell=index(tree.csr2ell),
+        row_of_slot=index(tree.row_of_slot),
+        col_of_slot=index(tree.col_of_slot),
         listen_idx=index(tree.listen_idx),
     )
 

@@ -4,12 +4,15 @@ The JAX package vmaps a per-element kernel and scatter-adds into a fixed
 CSR sparsity. Here the element kernel is one batched ``einsum`` over all
 elements and the COO->CSR reduction is one ``index_add_`` per value
 vector. The host builds the sparsity and the slot maps with numpy; the
-value vectors live on the caller's device in the caller's dtype.
+value vectors live on the caller's device in the caller's dtype. The
+per-frequency system K - k^2 M + sum(coeff_tag B_tag) is one elementwise
+combine over the shared sparsity, scattered into a padded ELL table
+(``scatter_ell``) for the gather matvec of the frequency-major sweep.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,8 +20,27 @@ import torch
 from mathaudio_tpu_torch.fem.basis import element_tables, shape_functions
 from mathaudio_tpu_torch.fem.mesh import TET, TRIANGLE, Mesh
 from mathaudio_tpu_torch.fem.quadrature import segment_rule, triangle_rule
+from mathaudio_tpu_torch.solvers.operators import EllOperator
 from mathaudio_tpu_torch.solvers.sparse import CsrMatrix
 from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
+
+
+def scatter_ell(vals, csr2ell, n_rows: int, width: int):
+    """CSR-ordered nnz values -> zero-padded ELL value table (n_rows, width).
+
+    One definition for the sweep's fine operator, the multigrid level build
+    and ``operator_of``, so their padding cannot drift apart."""
+    out = torch.zeros(n_rows * width, dtype=vals.dtype, device=vals.device)
+    out[csr2ell] = vals
+    return out.reshape(n_rows, width)
+
+
+def scatter_diag(vals, row_of_slot, col_of_slot, n_rows: int):
+    """CSR-ordered nnz values -> the matrix diagonal (n_rows,)."""
+    diag_vals = torch.where(row_of_slot == col_of_slot, vals, torch.zeros((), dtype=vals.dtype,
+                                                                          device=vals.device))
+    out = torch.zeros(n_rows, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, row_of_slot.long(), diag_vals)
 
 
 def coo_to_csr_map(rows, cols, shape):
@@ -203,7 +225,10 @@ def assemble_rhs(mesh: Mesh, source_fn: Callable, dtype=None, quad_order: int = 
 class HelmholtzAssembler:
     """K, M and per-tag boundary masses assembled ONCE over a shared
     sparsity, device-resident. Carries the fields the DIA tables are
-    built from (fem/dia.py dia_tables_of)."""
+    built from (fem/dia.py dia_tables_of) and the ELL layout of the
+    sparsity (width rounded up to a multiple of 8); ``assemble(k,
+    robin_coeffs)`` gives the system K - k^2 M + sum(coeff_tag B_tag) as
+    an ELL operator."""
 
     def __init__(self, mesh: Mesh, robin_tags: Sequence[int] = (), dtype=None, device=None):
         dtype = dtype or default_float()
@@ -223,5 +248,50 @@ class HelmholtzAssembler:
             tag: assemble_boundary_mass(mesh, tag, csr, dtype=dtype, device=device)
             for tag in self.robin_tags
         }
+        ell_idx, csr2ell = csr.ell_structure(pad_to_multiple=8)
+        self.ell_indices = torch.as_tensor(ell_idx, dtype=torch.int64, device=device)
+        self.ell_width = ell_idx.shape[1]
+        self.csr2ell = torch.as_tensor(csr2ell, device=device)
         self.num_nodes = mesh.num_nodes
+
+    def system_values(self, k, robin_coeffs: Optional[Dict[int, complex]] = None):
+        """(nnz,) complex values of K - k^2 M + sum coeff_tag B_tag."""
+        vals = (self.k_vals - (k**2) * self.m_vals).to(self.cdtype)
+        if robin_coeffs:
+            for tag, coeff in robin_coeffs.items():
+                vals = vals + torch.as_tensor(coeff, dtype=self.cdtype, device=self.device) * \
+                    self.b_vals[tag].to(self.cdtype)
+        return vals
+
+    def apply_dirichlet_values(self, vals, constrained):
+        """Zero constrained rows and columns, unit diagonal, on the fixed
+        sparsity. ``constrained`` is an (N,) bool tensor."""
+        row_c = constrained[self.row_of_slot.long()]
+        col_c = constrained[self.col_of_slot.long()]
+        keep = (~row_c) & (~col_c)
+        diag_c = row_c & (self.row_of_slot == self.col_of_slot)
+        return torch.where(keep, vals, torch.zeros((), dtype=vals.dtype, device=vals.device)) + \
+            diag_c.to(vals.dtype)
+
+    def dirichlet_rhs(self, vals, rhs, constrained, g):
+        """b <- b - A g on free rows; b <- g on constrained rows. ``g`` is
+        (N,) with the boundary values (zero on free nodes)."""
+        ag = self.operator_from_values(vals).matvec(g.to(vals.dtype))
+        return torch.where(constrained, g.to(rhs.dtype), rhs - ag.to(rhs.dtype))
+
+    def operator_from_values(self, vals) -> EllOperator:
+        return EllOperator(self.ell_indices,
+                           scatter_ell(vals, self.csr2ell, self.num_nodes, self.ell_width),
+                           self.num_nodes)
+
+    def assemble(self, k, robin_coeffs=None, dirichlet_constrained=None):
+        """One-call system operator for wavenumber k: (operator, values)."""
+        vals = self.system_values(k, robin_coeffs)
+        if dirichlet_constrained is not None:
+            vals = self.apply_dirichlet_values(vals, dirichlet_constrained)
+        return self.operator_from_values(vals), vals
+
+    def diagonal_of(self, vals):
+        """System diagonal for Jacobi preconditioning, from values."""
+        return scatter_diag(vals, self.row_of_slot, self.col_of_slot, self.num_nodes)
 

@@ -1,8 +1,9 @@
-"""Host-side mesh container, the structured box generator and the
-icosphere surface (counterpart of mathaudio_tpu/fem/mesh.py; pure numpy).
+"""Host-side mesh container, the structured triangle and box generators
+and the icosphere surface (counterpart of mathaudio_tpu/fem/mesh.py; pure
+numpy).
 
-Boundary detection counts faces once (lexsort, no hash maps). Box tags:
-1=x_min, 2=x_max, 3=y_min, 4=y_max, 5=z_min, 6=z_max.
+Boundary detection counts faces once (lexsort, no hash maps). Rectangle
+tags: 1=x_min, 2=x_max, 3=y_min, 4=y_max; the box adds 5=z_min, 6=z_max.
 """
 
 from __future__ import annotations
@@ -70,6 +71,33 @@ class Mesh:
         return self
 
 
+def _tag_rectangle(mesh: Mesh, x_min, x_max, y_min, y_max, tol=1e-10):
+    mesh.set_marker(1, lambda p: np.abs(p[:, 0] - x_min) < tol)
+    mesh.set_marker(2, lambda p: np.abs(p[:, 0] - x_max) < tol)
+    mesh.set_marker(3, lambda p: np.abs(p[:, 1] - y_min) < tol)
+    mesh.set_marker(4, lambda p: np.abs(p[:, 1] - y_max) < tol)
+    return mesh
+
+
+def rectangular_mesh_triangles(x_min, x_max, y_min, y_max, nx, ny) -> Mesh:
+    """2 triangles per cell, lexicographic nodes (x fastest), tags 1..4."""
+    xs = np.linspace(x_min, x_max, nx + 1)
+    ys = np.linspace(y_min, y_max, ny + 1)
+    xx, yy = np.meshgrid(xs, ys, indexing="xy")
+    nodes = np.stack([xx.reshape(-1), yy.reshape(-1)], axis=1)
+
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+    n00 = (j * (nx + 1) + i).reshape(-1)
+    n10 = n00 + 1
+    n01 = n00 + (nx + 1)
+    n11 = n01 + 1
+    t1 = np.stack([n00, n10, n11], axis=1)
+    t2 = np.stack([n00, n11, n01], axis=1)
+    elements = np.concatenate([t1, t2], axis=0)
+    mesh = Mesh(2, nodes, elements.astype(np.int64), TRIANGLE).detect_boundaries()
+    return _tag_rectangle(mesh, x_min, x_max, y_min, y_max)
+
+
 def _box_nodes(x_min, x_max, y_min, y_max, z_min, z_max, nx, ny, nz):
     xs = np.linspace(x_min, x_max, nx + 1)
     ys = np.linspace(y_min, y_max, ny + 1)
@@ -124,6 +152,10 @@ def box_mesh_tetrahedra(x_min, x_max, y_min, y_max, z_min, z_max, nx, ny, nz) ->
     )
     mesh = Mesh(3, nodes, elements.astype(np.int64), TET).detect_boundaries()
     return _tag_box(mesh, x_min, x_max, y_min, y_max, z_min, z_max)
+
+
+def unit_square_triangles(n: int) -> Mesh:
+    return rectangular_mesh_triangles(0.0, 1.0, 0.0, 1.0, n, n)
 
 
 def unit_cube_tetrahedra(n: int) -> Mesh:

@@ -1,12 +1,13 @@
 """Node-major frequency sweep of the FEM room model (counterpart of
 mathaudio_tpu/models/room_sweep_nm.py: NodeMajorParams,
-NodeMajorRoomSweep.__init__/_check_structured and sweep_fn).
+NodeMajorRoomSweep with sweep_fn and sweep_fn_jacobi).
 
 Every vector is (N, F) with the frequency band in the minor axis; level
 operators are DIA stencils over frequency-shared real tables
-(fem/dia.py, a hand-written kernel on the card); GMRES and the V-cycle
-are explicitly batched over lanes (solvers/krylov_batched.py,
-fem/multigrid_batched.py). Structured box meshes only.
+(fem/dia.py, a hand-written kernel on the card); GMRES and the multigrid
+cycle are explicitly batched over lanes (solvers/krylov_batched.py,
+fem/multigrid_batched.py). Structured box meshes only; the frequency-major
+ELL sweep (models/helmholtz_room.py::sweep_pressure) takes any mesh.
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ from __future__ import annotations
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mathaudio_tpu_torch.fem.dia import (
     DiaTables,
+    _inv_diag,
     dia_matvec,
     dia_pattern,
     dia_residual,
@@ -26,7 +29,9 @@ from mathaudio_tpu_torch.fem.dia import (
 from mathaudio_tpu_torch.fem.multigrid import (
     GeometricMultigrid,
     MgBuilder,
+    box_grid_dims,
     build_coarse_inv_chain,
+    prolongation_1d,
 )
 from mathaudio_tpu_torch.fem.multigrid_batched import (
     DiaLevel,
@@ -48,6 +53,9 @@ class NodeMajorParams(NamedTuple):
     mg_builder: MgBuilder  # coarsest-level pieces for the anchor inverses
     rhs: torch.Tensor  # (N,) complex
     listen_idx: torch.Tensor  # (L,)
+    # Per-level (pz, py, px) separable 1D transfer factors, or () when the
+    # hierarchy is not a lexicographic box grid (gather stencil only).
+    tp: Tuple[tuple, ...] = ()
 
 
 class NodeMajorRoomSweep:
@@ -82,6 +90,7 @@ class NodeMajorRoomSweep:
                 offsets.append(offs_l)
             levels.append(DiaLevel(tabs, bl.p_idx, bl.p_w, bl.r_idx, bl.r_w))
         params = model.params()
+        self.grid_dims = self._grid_dims(mg, len(levels))
         self._params = NodeMajorParams(
             offsets=tuple(offsets),
             fine_tables=fine_tables,
@@ -89,11 +98,56 @@ class NodeMajorRoomSweep:
             mg_builder=builder,
             rhs=params.rhs,
             listen_idx=params.listen_idx,
+            tp=self._tp_factors(mg, levels, model.dtype),
         )
 
     @property
     def offsets(self) -> Tuple[Tuple[int, ...], ...]:
         return self._params.offsets
+
+    @staticmethod
+    def _grid_dims(mg, n_levels: int) -> Tuple[Tuple[int, int, int], ...]:
+        """(nx, ny, nz) node counts of every mesh of the hierarchy (the
+        n_levels smoothing meshes and the coarsest), for the streamed
+        transfers; () if a mesh is not a lexicographic box grid or a level
+        pair breaks the 2:1 nesting (f = 2 (c - 1) + 1 per axis)."""
+        dims = []
+        for l in range(n_levels + 1):
+            d = box_grid_dims(mg.meshes[l])
+            if d is None:
+                return ()
+            dims.append(d)
+        for df, dc in zip(dims[:-1], dims[1:]):
+            if any(f != 2 * (c - 1) + 1 for f, c in zip(df, dc)):
+                return ()
+        return tuple(dims)
+
+    @staticmethod
+    def _tp_factors(mg, levels, dtype) -> Tuple[tuple, ...]:
+        """Separable 1D transfer factors per level, checked against the
+        gather stencil on a random vector; () if a level is not a
+        lexicographic 2:1-nested box grid (the cycle then keeps the gather
+        stencil)."""
+        dims = NodeMajorRoomSweep._grid_dims(mg, len(levels))
+        if not dims:
+            return ()
+        tps = []
+        for l, dc in enumerate(dims[1:]):
+            mats = [prolongation_1d(c - 1) for c in (dc[2], dc[1], dc[0])]
+            # the same operator as the stencil, exactly
+            rng = np.random.default_rng(l)
+            v = rng.standard_normal(dc[0] * dc[1] * dc[2])
+            y4 = np.einsum("zyx,Xx->zyX", v.reshape(dc[2], dc[1], dc[0]), mats[2])
+            y4 = np.einsum("zyx,Yy->zYx", y4, mats[1])
+            y4 = np.einsum("zyx,Zz->Zyx", y4, mats[0])
+            p_idx = levels[l].p_idx.cpu().numpy()
+            p_w = levels[l].p_w.cpu().numpy()
+            y_st = (p_w * v[p_idx]).sum(axis=1)
+            if not np.allclose(y4.ravel(), y_st, atol=1e-12 * max(1.0, abs(v).max())):
+                return ()
+            dev = levels[l].p_w.device
+            tps.append(tuple(torch.as_tensor(m, dtype=dtype, device=dev) for m in mats))
+        return tuple(tps)
 
     @staticmethod
     def _check_structured(asm):
@@ -145,17 +199,21 @@ class NodeMajorRoomSweep:
         ``warm_restart`` (0 = config.restart); anchor lanes report
         phase-1 + phase-2 iterations.
 
-        ``mg_cycle_type`` and ``mg_transfers`` take the reference's values:
-        the V-cycle ("v") with gather transfers ("gather") runs; W and F
-        cycles and the "tp", "stream" and "stream16" transfers raise a
-        ValueError naming slice 6 of the port, which brings them."""
+        ``mg_cycle_type``: "v", "w" or "f". ``mg_transfers``: "gather"
+        (default; row gathers of the transfer stencils), "tp" (the
+        separable 1D factors ``params.tp`` as three per-axis real products),
+        "stream" (per-axis interleaves and decimations as slices and adds;
+        needs a 2:1-nested lexicographic box hierarchy) or "stream16" (the
+        stream form on bfloat16 re/im planes: ~4e-3 rounding inside the
+        preconditioner, so iterations may differ, the accepted solutions
+        still meet the tolerance). All four are the same operator."""
         config = config or KrylovConfig(max_iterations=300, tolerance=1e-5, restart=30)
         if mg_transfers not in ("gather", "tp", "stream", "stream16"):
             raise ValueError(f"unknown mg_transfers {mg_transfers!r}")
-        if mg_transfers != "gather":
+        if mg_transfers in ("stream", "stream16") and not self.grid_dims:
             raise ValueError(
-                f"mg_transfers={mg_transfers!r} is not ported yet: the tensor-product and "
-                "streamed transfers come with slice 6 of the port; \"gather\" runs"
+                f"mg_transfers={mg_transfers!r} needs a lexicographic "
+                "2:1-nested box hierarchy (box_grid_dims failed on a level)"
             )
         check_cycle(mg_cycle_type)
         if gmres_orth not in ("cgs1", "cgs2"):
@@ -163,6 +221,7 @@ class NodeMajorRoomSweep:
         if warm_stride > 1 and warm_interp not in ("linear", "cubic"):
             raise ValueError(f"unknown warm_interp {warm_interp!r}")
         absorption = self.absorption
+        grid_dims = self.grid_dims if mg_transfers in ("stream", "stream16") else ()
 
         def fn(params: NodeMajorParams, ks):
             ks = torch.as_tensor(ks, dtype=params.fine_tables.k.dtype,
@@ -205,7 +264,13 @@ class NodeMajorRoomSweep:
                 torch.tensor(-1j * absorption, dtype=cd, device=k.device) * anchor_ks.to(cd),
                 shift=mg_shift,
             )
-            mgp = make_dia_mg(offsets, params.levels, ks, absorption, anchor_inv, shift=mg_shift)
+            mgp = make_dia_mg(
+                offsets, params.levels, ks, absorption, anchor_inv,
+                shift=mg_shift,
+                tp=params.tp if mg_transfers == "tp" else (),
+                dims=grid_dims,
+                transfer_bf16=(mg_transfers == "stream16"),
+            )
             tabs = params.fine_tables
             a_mv = lambda x: dia_matvec(offsets[0], tabs, cm_fine, cb_fine, x)  # noqa: E731
             a_res = lambda b, x: dia_residual(offsets[0], tabs, cm_fine, cb_fine, x, b)  # noqa: E731
@@ -256,5 +321,33 @@ class NodeMajorRoomSweep:
                 its = sol.iterations
             p = sol.x[params.listen_idx, :].T  # (F, L)
             return p, its, sol.converged
+
+        return fn
+
+    def sweep_fn_jacobi(self, config: Optional[KrylovConfig] = None):
+        """Jacobi-preconditioned variant (no multigrid): (params, ks) ->
+        (pressure (F, L), iterations (F,), converged (F,)). GMRES with the
+        reference's default CGS2."""
+        config = config or KrylovConfig(max_iterations=300, tolerance=1e-5, restart=30)
+        absorption = self.absorption
+
+        def fn(params: NodeMajorParams, ks):
+            ks = torch.as_tensor(ks, dtype=params.fine_tables.k.dtype,
+                                 device=params.rhs.device)
+            nf = ks.shape[0]
+            cd = params.rhs.dtype
+            n = params.rhs.shape[0]
+            offs = params.offsets[0]
+            tabs = params.fine_tables
+            k = ks.to(cd)
+            cm_fine = k * k
+            cb_fine = torch.tensor(-1j * absorption, dtype=cd, device=k.device) * k
+            inv_diag = _inv_diag(tabs, cm_fine, cb_fine)
+            a_mv = lambda x: dia_matvec(offs, tabs, cm_fine, cb_fine, x)  # noqa: E731
+            a_res = lambda b, x: dia_residual(offs, tabs, cm_fine, cb_fine, x, b)  # noqa: E731
+            b = params.rhs[:, None].expand(n, nf).contiguous()
+            sol = gmres_batched(a_mv, b, config=config, preconditioner=lambda v: inv_diag * v,
+                                a_res=a_res)
+            return sol.x[params.listen_idx, :].T, sol.iterations, sol.converged
 
         return fn

@@ -29,6 +29,10 @@ and raises under "pallas", since the kernel needs the card. Any other
 device raises. On CUDA a build or launch failure raises; nothing falls
 back to the twins. The i == j entries are singular and are
 overwritten by the assembly: compare the two forms off the diagonal.
+
+``pairwise_double_layer_xla``, ``pairwise_bm_xla`` and ``pairwise_kh_xla``
+are the twins under the reference's names and scalar-``k`` signatures:
+plain torch on whatever device holds the inputs, never the kernel.
 """
 
 from __future__ import annotations
@@ -396,3 +400,30 @@ def pairwise_kh(x, yq, ny, w, k, force: str = "auto", want_single: bool = True):
     else:
         out = pairwise_kh_ref(x, yq, ny, w, ks, want_single)
     return _single(out, scalar)
+
+
+# --------------------------------------------------------------------------
+# The reference's XLA forms under their names: the plain torch twins at one
+# scalar wavenumber, on any device (they launch nothing).
+# --------------------------------------------------------------------------
+
+
+def pairwise_double_layer_xla(x, yq, ny, w, k):
+    """The plain torch form under the reference's name and scalar-``k``
+    signature: (D_k (Ni, Nj) complex, D_0 (Ni, Nj) real)."""
+    ks, scalar = _wavenumbers(k, x)
+    return _single(pairwise_double_layer_ref(x, yq, ny, w, ks), scalar)
+
+
+def pairwise_bm_xla(x, nx, yq, ny, w, k):
+    """The plain torch form under the reference's name and scalar-``k``
+    signature: (D_k, D_0, T_k, T_0), each (Ni, Nj)."""
+    ks, scalar = _wavenumbers(k, x)
+    return _single(pairwise_bm_ref(x, nx, yq, ny, w, ks), scalar)
+
+
+def pairwise_kh_xla(x, yq, ny, w, k):
+    """The plain torch form under the reference's name and scalar-``k``
+    signature: (S_k, D_k) at field points, each (Ni, Nj)."""
+    ks, scalar = _wavenumbers(k, x)
+    return _single(pairwise_kh_ref(x, yq, ny, w, ks), scalar)

@@ -1,11 +1,22 @@
-"""Jacobi preconditioner (counterpart of
-mathaudio_tpu/solvers/preconditioners/basic.py::jacobi_preconditioner)."""
+"""Identity and Jacobi preconditioners (counterpart of
+mathaudio_tpu/solvers/preconditioners/basic.py)."""
 
 from __future__ import annotations
 
 import torch
 
-from mathaudio_tpu_torch.solvers.operators import DiagonalOperator
+from mathaudio_tpu_torch.solvers.operators import DiagonalOperator, LinearOperator
+
+
+def identity_preconditioner() -> LinearOperator:
+    class _Identity(LinearOperator):
+        def matvec(self, x):
+            return x
+
+        def rmatvec(self, x):
+            return x
+
+    return _Identity()
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> DiagonalOperator:

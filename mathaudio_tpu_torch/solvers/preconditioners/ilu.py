@@ -1,7 +1,7 @@
 """ILU(0) with fixed-point triangular applies (counterpart of
 mathaudio_tpu/solvers/preconditioners/ilu.py: ``ilu0_factor``,
 ``_split_lu`` and ``IluFixedPoint``; the graph-colored variant comes with
-slice 6).
+slice 6b).
 
 Factorization: IKJ ILU(0) on the host, on the CSR sparsity, by the C++
 kernel of ``mathaudio_tpu_torch.native`` (built with g++ at first use; a

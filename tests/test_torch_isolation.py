@@ -69,7 +69,9 @@ def test_import_leaves_jax_unloaded():
         "mathaudio_tpu_torch.bem.testing, mathaudio_tpu_torch.apps.roomsim_bem, "
         "mathaudio_tpu_torch.apps.qa_suite_bem, mathaudio_tpu_torch.bem.fmm, "
         "mathaudio_tpu_torch.bem.octree, mathaudio_tpu_torch.bem.fmm_chip, mathaudio_tpu_torch.native, "
-        "mathaudio_tpu_torch.solvers.preconditioners.ilu; "
+        "mathaudio_tpu_torch.solvers.preconditioners.ilu, mathaudio_tpu_torch.fem, "
+        "mathaudio_tpu_torch.models, mathaudio_tpu_torch.ops, mathaudio_tpu_torch.solvers, "
+        "mathaudio_tpu_torch.models.helmholtz_room, mathaudio_tpu_torch.fem.multigrid; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -168,3 +170,21 @@ def test_native_source_stands_alone():
 
     assert native.BUILD_DIR.parent == ROOT / "mathaudio_tpu_torch" / "native"
     assert "mathaudio_tpu_torch/native/_build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_package_inits_build_nothing():
+    """The package ``__init__`` files re-export the reference's names and
+    stay cheap: no triton, no CUDA initialisation, no kernel library."""
+    code = (
+        "import sys, torch, mathaudio_tpu_torch, mathaudio_tpu_torch.fem, "
+        "mathaudio_tpu_torch.models, mathaudio_tpu_torch.ops, mathaudio_tpu_torch.solvers, "
+        "mathaudio_tpu_torch.solvers.preconditioners; "
+        "from mathaudio_tpu_torch import kernels; "
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'triton']; "
+        "bad += ['cuda initialised'] if torch.cuda.is_initialized() else []; "
+        "bad += ['kernel loaded'] if kernels._loaded else []; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

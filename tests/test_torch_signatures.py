@@ -8,8 +8,12 @@ not run yet raise a ValueError that names the slice of the port that brings
 them. The node-major sweep is called with the keyword set of the reference's
 own bench (bench.py ``run``) and matches the reference in float64 on the
 CPU; the ``force`` of the BEM pairwise sums keeps the reference's meaning.
+Every name a reference package ``__init__`` re-exports resolves on the
+port's package, or stands in a table of unported names with its slice.
 """
 
+import ast
+import importlib
 import inspect
 
 import jax
@@ -20,15 +24,21 @@ import torch
 
 import mathaudio_tpu.fem.assembly as jax_assembly
 import mathaudio_tpu.fem.multigrid as jax_multigrid
+import mathaudio_tpu.fem.mesh as jax_mesh
 import mathaudio_tpu.fem.multigrid_batched as jax_multigrid_batched
+import mathaudio_tpu.models.helmholtz_room as jax_helmholtz_room
 import mathaudio_tpu.models.room_sweep_nm as jax_room_sweep_nm
+import mathaudio_tpu.solvers.preconditioners.basic as jax_basic
 import mathaudio_tpu.ops.bem_assembly as jax_ops
 import mathaudio_tpu.solvers.direct as jax_direct
 import mathaudio_tpu.solvers.krylov as jax_krylov
 import mathaudio_tpu_torch.fem.assembly as assembly
 import mathaudio_tpu_torch.fem.multigrid as multigrid
+import mathaudio_tpu_torch.fem.mesh as mesh
 import mathaudio_tpu_torch.fem.multigrid_batched as multigrid_batched
+import mathaudio_tpu_torch.models.helmholtz_room as helmholtz_room
 import mathaudio_tpu_torch.models.room_sweep_nm as room_sweep_nm
+import mathaudio_tpu_torch.solvers.preconditioners.basic as basic
 import mathaudio_tpu_torch.ops.bem_assembly as ops
 import mathaudio_tpu_torch.solvers.direct as direct
 import mathaudio_tpu_torch.solvers.krylov as krylov
@@ -41,6 +51,9 @@ from mathaudio_tpu_torch.models.helmholtz_room import RoomSweepModel
 # (port module, reference module, qualified name)
 MODULES = {
     "models.room_sweep_nm": (room_sweep_nm, jax_room_sweep_nm),
+    "models.helmholtz_room": (helmholtz_room, jax_helmholtz_room),
+    "fem.mesh": (mesh, jax_mesh),
+    "solvers.preconditioners.basic": (basic, jax_basic),
     "fem.multigrid_batched": (multigrid_batched, jax_multigrid_batched),
     "fem.multigrid": (multigrid, jax_multigrid),
     "fem.assembly": (assembly, jax_assembly),
@@ -64,6 +77,63 @@ FUNCTIONS = [
     ("ops.bem_assembly", "pairwise_bm"),
     ("ops.bem_assembly", "pairwise_mixed"),
     ("ops.bem_assembly", "pairwise_kh"),
+    # slice 6a: every FEM-sweep option of the main path
+    ("models.room_sweep_nm", "NodeMajorRoomSweep.sweep_fn_jacobi"),
+    ("models.room_sweep_nm", "NodeMajorRoomSweep._grid_dims"),
+    ("models.room_sweep_nm", "NodeMajorRoomSweep._tp_factors"),
+    ("fem.multigrid_batched", "_real_view"),
+    ("fem.multigrid_batched", "_prolong_tp"),
+    ("fem.multigrid_batched", "_restrict_tp"),
+    ("fem.multigrid_batched", "_interp_axis"),
+    ("fem.multigrid_batched", "_decimate_axis"),
+    ("fem.multigrid_batched", "_prolong_stream"),
+    ("fem.multigrid_batched", "_restrict_stream"),
+    ("fem.multigrid_batched", "_prolong_stream16"),
+    ("fem.multigrid_batched", "_restrict_stream16"),
+    ("fem.multigrid_batched", "_prolong_b"),
+    ("fem.multigrid_batched", "_restrict_b"),
+    ("fem.multigrid_batched", "_coarse_solve_b"),
+    ("fem.multigrid", "box_hierarchy"),
+    ("fem.multigrid", "rect_hierarchy"),
+    ("fem.multigrid", "box_hierarchy_dims"),
+    ("fem.multigrid", "structured_prolongation"),
+    ("fem.multigrid", "prolongation_1d"),
+    ("fem.multigrid", "box_grid_dims"),
+    ("fem.multigrid", "transpose_transfer"),
+    ("fem.multigrid", "_level_values"),
+    ("fem.multigrid", "build_mg_levels"),
+    ("fem.multigrid", "build_coarse_inv"),
+    ("fem.multigrid", "build_coarse_inv_chain"),
+    ("fem.multigrid", "build_mg_params"),
+    ("fem.multigrid", "_level_matvec"),
+    ("fem.multigrid", "_prolong"),
+    ("fem.multigrid", "_restrict"),
+    ("fem.multigrid", "_coarse_solve"),
+    ("fem.multigrid", "mg_cycle"),
+    ("fem.multigrid", "vcycle"),
+    ("fem.multigrid", "solve_multigrid"),
+    ("fem.assembly", "scatter_ell"),
+    ("fem.assembly", "scatter_diag"),
+    ("fem.assembly", "HelmholtzAssembler.system_values"),
+    ("fem.assembly", "HelmholtzAssembler.apply_dirichlet_values"),
+    ("fem.assembly", "HelmholtzAssembler.dirichlet_rhs"),
+    ("fem.assembly", "HelmholtzAssembler.operator_from_values"),
+    ("fem.assembly", "HelmholtzAssembler.assemble"),
+    ("fem.assembly", "HelmholtzAssembler.diagonal_of"),
+    ("models.helmholtz_room", "system_values_of"),
+    ("models.helmholtz_room", "operator_of"),
+    ("models.helmholtz_room", "jacobi_of"),
+    ("models.helmholtz_room", "sweep_pressure"),
+    ("models.helmholtz_room", "RoomSweepModel.sweep_fn"),
+    ("models.helmholtz_room", "RoomSweepModel.sweep"),
+    ("models.helmholtz_room", "RoomSweepModel.sweep_spl"),
+    ("fem.mesh", "rectangular_mesh_triangles"),
+    ("fem.mesh", "unit_square_triangles"),
+    ("solvers.preconditioners.basic", "identity_preconditioner"),
+    # F4: the reference's XLA forms under their names
+    ("ops.bem_assembly", "pairwise_double_layer_xla"),
+    ("ops.bem_assembly", "pairwise_bm_xla"),
+    ("ops.bem_assembly", "pairwise_kh_xla"),
 ]
 
 
@@ -93,6 +163,29 @@ def test_signature_is_the_reference(where, qualname):
         assert _same_default(p.default, r.default), (p.name, p.default, r.default)
     extras = port[len(ref):]
     assert all(p.kind is inspect.Parameter.KEYWORD_ONLY for p in extras), extras
+
+
+# The sweeps' state containers: the reference's fields in the reference's
+# order (the port may add its own: the static offsets of NodeMajorParams
+# lead, MgBuilderLevel's node count closes).
+STATES = [
+    ("models.room_sweep_nm", "NodeMajorParams"),
+    ("models.helmholtz_room", "RoomParams"),
+    ("fem.multigrid", "MgLevel"),
+    ("fem.multigrid", "MgParams"),
+    ("fem.multigrid", "MgBuilderLevel"),
+    ("fem.multigrid_batched", "DiaMg"),
+    ("fem.multigrid_batched", "DiaLevel"),
+]
+
+
+@pytest.mark.parametrize("where,name", STATES, ids=[n for _, n in STATES])
+def test_state_fields_hold_the_reference_order(where, name):
+    port_mod, ref_mod = MODULES[where]
+    port, ref = getattr(port_mod, name)._fields, getattr(ref_mod, name)._fields
+    kept = [f for f in port if f in ref]
+    assert kept == list(ref), (port, ref)
+    assert set(port) - set(ref) <= {"offsets", "num_nodes"}
 
 
 # --------------------------------------------------------------------------
@@ -145,28 +238,16 @@ def test_bench_keyword_call_matches_reference(sweeps):
 # --------------------------------------------------------------------------
 
 
-def _dia_mg(**kw):
-    return multigrid_batched.make_dia_mg((), (), torch.zeros(1), 0.1, None, **kw)
-
-
 UNPORTED = {
-    "sweep_tp": (lambda nm: nm.sweep_fn(mg_transfers="tp"), "slice 6"),
-    "sweep_stream": (lambda nm: nm.sweep_fn(mg_transfers="stream"), "slice 6"),
-    "sweep_stream16": (lambda nm: nm.sweep_fn(mg_transfers="stream16"), "slice 6"),
-    "sweep_w_cycle": (lambda nm: nm.sweep_fn(mg_cycle_type="w"), "slice 6"),
-    "sweep_f_cycle": (lambda nm: nm.sweep_fn(mg_cycle_type="f"), "slice 6"),
-    "cycle_w": (lambda nm: multigrid_batched.mg_cycle_batched(None, (), None, cycle="w"), "slice 6"),
-    "cycle_f": (lambda nm: multigrid_batched.mg_cycle_batched(None, (), None, cycle="f"), "slice 6"),
-    "fuse_diag_false": (lambda nm: _dia_mg(fuse_diag=False), "slice 6"),
-    "tp": (lambda nm: _dia_mg(tp=((np.eye(2),) * 3,)), "slice 6"),
-    "dims": (lambda nm: _dia_mg(dims=((4, 4, 4), (2, 2, 2))), "slice 6"),
-    "transfer_bf16": (lambda nm: _dia_mg(transfer_bf16=True), "slice 6"),
-    "grid_dims": (lambda nm: multigrid.GeometricMultigrid([], grid_dims=[(4, 4, 4)]), "slice 6"),
     "axis_name": (lambda nm: krylov.gmres(torch.eye(2), torch.ones(2), axis_name="rows"),
                   "slice 8"),
     # values the reference does not know either
     "sweep_unknown_transfers": (lambda nm: nm.sweep_fn(mg_transfers="fft"), "unknown mg_transfers"),
     "sweep_unknown_cycle": (lambda nm: nm.sweep_fn(mg_cycle_type="x"), "unknown multigrid cycle"),
+    "cycle_unknown": (lambda nm: multigrid_batched.mg_cycle_batched(None, (), None, cycle="x"),
+                      "unknown multigrid cycle"),
+    "mg_cycle_unknown": (lambda nm: multigrid.mg_cycle(None, None, cycle="x"),
+                         "unknown multigrid cycle"),
 }
 
 
@@ -668,3 +749,88 @@ def test_slice_5b_returned_solve_takes_operators(factory):
     port = inspect.signature(getattr(port_fmm_chip, factory)()).parameters
     ref = inspect.signature(getattr(jax_fmm_chip, factory)()).parameters
     assert tuple(port) == port_params and tuple(ref) == ref_params
+
+
+# --------------------------------------------------------------------------
+# F4: the reference packages' re-exports resolve on the port's packages.
+# --------------------------------------------------------------------------
+
+PACKAGES = ("", ".models", ".fem", ".solvers", ".solvers.preconditioners", ".ops")
+# Re-exported names whose modules (or parts of them) are later slices.
+UNPORTED_EXPORTS = {
+    ".fem": {name: "slice 6c" for name in (
+        "rectangular_mesh_quads", "box_mesh_hexahedra", "circular_mesh_triangles",
+        "annular_mesh_triangles", "spherical_shell_mesh_tetrahedra", "unit_square_quads",
+        "unit_cube_hexahedra", "assemble_lumped_mass", "DirichletBC", "RobinBC", "NeumannBC",
+        "HelmholtzProblem", "solve_helmholtz")},
+    ".solvers": {name: "slice 6b" for name in (
+        "cg", "bicgstab", "cgs", "qmrcgstab", "LuFactorization", "IluColored", "BlockJacobi",
+        "AdditiveSchwarz", "AmgConfig", "AmgPreconditioner", "blas")},
+    ".solvers.preconditioners": {name: "slice 6b" for name in (
+        "IluColored", "greedy_coloring", "AdditiveSchwarz", "BlockJacobi", "AmgConfig",
+        "AmgPreconditioner")},
+}
+
+
+def _reexports(package: str):
+    """(name, defining module relative to the package root) of every name
+    the reference package's ``__init__`` imports from its modules."""
+    mod = importlib.import_module("mathaudio_tpu" + package)
+    out = []
+    for node in ast.parse(inspect.getsource(mod)).body:
+        if isinstance(node, ast.ImportFrom):
+            for alias in node.names:
+                out.append((alias.asname or alias.name, node.module[len("mathaudio_tpu"):]))
+    return out
+
+
+EXPORTS = [(package, name, source) for package in PACKAGES
+           for name, source in _reexports(package)]
+
+
+def test_every_reference_package_reexports():
+    assert len(EXPORTS) >= 70
+    assert ("", "SPEED_OF_SOUND", ".xtypes") in EXPORTS
+    assert (".models", "RoomSweepModel", ".models.helmholtz_room") in EXPORTS
+    for package, names in UNPORTED_EXPORTS.items():
+        assert set(names) <= {n for p, n, _ in EXPORTS if p == package}, package
+
+
+@pytest.mark.parametrize("package,name,source", EXPORTS,
+                         ids=[f"mathaudio_tpu{p}:{n}" for p, n, _ in EXPORTS])
+def test_reference_reexport_resolves_on_the_port(package, name, source):
+    port_pkg = importlib.import_module("mathaudio_tpu_torch" + package)
+    if name in UNPORTED_EXPORTS.get(package, {}):
+        assert UNPORTED_EXPORTS[package][name].startswith("slice ")
+        assert not hasattr(port_pkg, name), f"{name} is ported: re-export it, drop its row"
+        return
+    got = getattr(port_pkg, name)
+    if source == package:  # a submodule (``from mathaudio_tpu.solvers import blas``)
+        assert inspect.ismodule(got)
+        return
+    assert got is getattr(importlib.import_module("mathaudio_tpu_torch" + source), name)
+
+
+def test_bench_imports_resolve_on_the_port():
+    """bench.py's own imports, with the package name swapped."""
+    from mathaudio_tpu_torch.models import RoomSweepModel as Model
+    from mathaudio_tpu_torch.solvers import KrylovConfig as Config
+
+    assert Model is RoomSweepModel and Config is krylov.KrylovConfig
+
+
+@pytest.mark.parametrize("name", ["pairwise_double_layer_xla", "pairwise_bm_xla",
+                                  "pairwise_kh_xla"])
+def test_xla_forms_match_the_reference_at_a_scalar_k(bem_inputs, name):
+    c, n, qp, qw, pts = bem_inputs
+    x = pts if name == "pairwise_kh_xla" else c
+    args = (x, qp, n, qw) if name != "pairwise_bm_xla" else (x, n, qp, n, qw)
+    before = dict(ops.LAUNCHES)
+    got = getattr(ops, name)(*(torch.tensor(a) for a in args), 1.4)
+    want = getattr(jax_ops, name)(*(jnp.asarray(a) for a in args), 1.4)
+    assert ops.LAUNCHES == before
+    assert len(got) == len(want)
+    for g, r in zip(got, want):
+        assert tuple(g.shape) == np.shape(r)
+        np.testing.assert_allclose(_off_diagonal(g.numpy()), _off_diagonal(np.asarray(r)),
+                                   rtol=0, atol=1e-12)
