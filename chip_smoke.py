@@ -62,6 +62,23 @@ most 200 iterations, a plane wave along +z), its Burton–Miller solve (beta
 matrices at N=5120, k = 2, the QA suite's three mlfmm cases, and the
 mixed-BC tree on a pulsating sphere at N=20480.
 
+Path 10 is the general FEM problem with its solvers (phase 17): the FEM QA
+suite (apps/qa_suite_fem.py) with its 21 cases, every solver name of
+fem/problem.py::solve_helmholtz on a 2400- and a 4224-node annulus and a
+1458-node spherical shell, on the card in float64 and in float32 (the app's
+default), and ``--fast``; and path 3 (c)'s rigid sphere (N=5120, ka = 2,
+Burton–Miller, complex64) through BemSolver with BiCGStab, CGS and
+QMR-CGSTAB, plus one rigid CBIE solve with BiCGStab.
+
+Path 11 is the FEM room simulator (apps/roomsim_fem.py, phase 18): (a)
+configs/small_room.json uncut (1053 nodes, 6 frequencies), flat and
+``--hierarchical``, complex64; (b) configs/nearfield_stereo.json at its own
+mesh resolution (37 x 33 x 25 = 30,525 nodes, 3 levels, restart 300, rigid
+walls, 2 sources) with four cuts: 8 log-spaced of its 100 frequencies over
+40-500 Hz, GMRES tolerance 1e-6 for its 1e-12 (below what complex64
+resolves), max_iter 100 for its 10000 (1000 iterations), one batch of 8
+(the automatic batch would pad the 8 frequencies to 64 lanes).
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -216,7 +233,26 @@ Phases, each fatal on failure:
    recorded rel_l2, and in float32 (the app's default here) printed beside
    and held to the QA threshold 0.5; (e) the mixed-BC tree (float64, tol
    1e-7) converged with its surface rel L2 against the closed form
-   <= 0.05; the phase prints its own seconds.
+   <= 0.05; the phase prints its own seconds;
+17. path 10 (no hand-written kernel of its own but the BEM routes'): (a) the
+   21 QA FEM cases through the case functions in float64, each rel_l2
+   within 2% + 1e-4 of qa_fem_results/summary.json and converged, then in
+   float32 printed beside and held to the QA threshold 0.1 (converged or
+   not printed: float32 BiCGStab stops short of 1e-5); per case the solve's
+   ms, iterations, residual, the preconditioner's set-up seconds and device
+   launches per apply (colors of the colored ILU); main --fast exits 0; (b)
+   each BemSolver route converged with ||A p - b||/||b|| <= 1e-4 on the
+   assembled matrix, with exactly one ``burton_miller`` launch (Burton–Miller)
+   or one ``double_layer`` launch (CBIE) in its counted run, both variants
+   held against their twins at 5120 x 5120, F=1, and timed; the phase prints
+   its own seconds;
+18. path 11: (a) main(argv) flat and --hierarchical, every frequency
+   converged, SPL within 0.05 dB of run_fem_simulation in float64 on the
+   card; (b) the cut run: 40 Hz converged, SPL at 40 Hz and at the highest
+   converged frequency within 0.1 dB of a float64 scipy sparse direct solve
+   of the same assembled system on the host; iterations, converged flags, ms
+   per frequency, the batch size, peak memory, and the idle share of the
+   batch's first 30 Arnoldi steps under the profiler.
 With ``--profile``, once every phase has passed, one more run of each
 path and of each FEM option (for path 5 a fit at maxiter 100) runs under
 torch.profiler and its
@@ -2830,6 +2866,353 @@ def mlfmm_phase(ops, dev, counters, subdiv=MLFMM_SUBDIV, k=MLFMM_K, dense_subdiv
     return launches, dl_record, records
 
 
+# Phase 17: slices 6b and 6c, the general FEM problem and the solvers
+# (apps/qa_suite_fem.py's full list and --fast; the BemSolver routes of the
+# other Krylov solvers on path 3 (c)'s rigid sphere).
+QA_FEM_SUMMARY = REPO / "qa_fem_results" / "summary.json"
+QA_FEM_THRESHOLD = 0.1  # apps/qa_suite_fem.py main's --threshold default
+QA_FEM_PRECONDITIONERS = ("AmgPreconditioner", "AdditiveSchwarz", "IluColored", "IluFixedPoint")
+KRYLOV_ROUTES = ("bicgstab", "cgs", "qmrcgstab")
+# Phase 18: the FEM room simulator (apps/roomsim_fem.py). (a) small_room.json
+# uncut, complex64 against a float64 run on the card; (b) nearfield_stereo.json
+# at its own mesh resolution with the cuts below, against a float64 sparse
+# direct solve of the same assembled system.
+ROOMSIM_FEM_DB = 0.05  # (a): complex64 vs float64 on the card
+ROOMSIM_FEM_DIRECT_DB = 0.1  # (b): complex64 vs the float64 sparse direct solve
+ROOMSIM_FEM_WIDE_CUTS = dict(frequencies=8, tolerance=1e-6, max_iter=100, batch_size=8)
+
+
+def qa_fem_cases(qa):
+    """(case function, ka, its two mesh sizes, solver) in the order of
+    apps/qa_suite_fem.py main's full list: 21 cases."""
+    cases = [("cylinder_case", 1.0, (24, 96), s) for s in qa.SOLVERS]
+    for s in qa.SECOND_SOLVERS:
+        cases += [("cylinder_case", 2.0, (32, 128), s), ("sphere_case", 1.0, (8, 2), s)]
+    return cases
+
+
+class _Recorded:
+    """Stands in for a function or a class in a module's namespace: each
+    call (of the function, the class, or a classmethod such as
+    ``from_csr``) appends (name, synchronised seconds, result) to
+    ``calls``."""
+
+    def __init__(self, target, name, calls):
+        self._target, self._name, self._calls = target, name, calls
+
+    def _timed(self, fn, *args, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self._calls.append((self._name, time.perf_counter() - t0, out))
+        return out
+
+    def __call__(self, *args, **kw):
+        return self._timed(self._target, *args, **kw)
+
+    def __getattr__(self, attr):
+        return lambda *args, **kw: self._timed(getattr(self._target, attr), *args, **kw)
+
+
+def _recording(module, names, calls):
+    """Put a ``_Recorded`` in place of each of ``module``'s ``names``;
+    returns restore()."""
+    saved = {name: getattr(module, name) for name in names}
+    for name, target in saved.items():
+        setattr(module, name, _Recorded(target, name, calls))
+
+    def restore():
+        for name, target in saved.items():
+            setattr(module, name, target)
+
+    return restore
+
+
+def qa_fem_phase(ops, dev, counters, cases=None, bem_subdiv=BEM_SUBDIV):
+    """Phase 17 (path 10): (a) apps/qa_suite_fem.py's full list through its
+    case functions on the card in float64, each rel_l2 within QA_REL of the
+    recorded run's (qa_fem_results/) plus QA_ABS, then in float32 (the
+    app's default, complex64) held to the threshold 0.1, and main --fast;
+    per case the solve's ms, iterations, the preconditioner's set-up seconds
+    and device launches per apply (colors of the colored ILU); (b) path 3
+    (c)'s rigid sphere through BemSolver with BiCGStab, CGS and QMR-CGSTAB
+    (Burton–Miller: one ``burton_miller`` launch each, counted, converged,
+    residual ||A p - b||/||b|| <= 1e-4) and a rigid CBIE solve (one
+    ``double_layer`` launch), both variants held against their twins at
+    that shape. Returns ({variant: [records]}, callables for the profiler)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.apps import qa_suite_fem as qa
+    from mathaudio_tpu_torch.bem import assembly, sweep
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.bem.solver import BemProblem, BemSolver
+    from mathaudio_tpu_torch.bem.types import BemSolverConfig, SolverMethod
+    from mathaudio_tpu_torch.fem import problem as fem_problem
+    from mathaudio_tpu_torch.solvers.preconditioners import IluColored
+
+    t_phase = time.perf_counter()
+    cases = qa_fem_cases(qa) if cases is None else cases
+    with open(QA_FEM_SUMMARY) as fh:
+        recorded = {c["name"]: c["rel_l2"] for c in json.load(fh)["cases"]}
+    rng = np.random.default_rng(0)
+
+    def run_cases(dtype, tmp):
+        rows = []
+        for fn, ka, sizes, solver in cases:
+            calls = []
+            restore = [_recording(qa, ("solve_helmholtz",), calls),
+                       _recording(fem_problem, QA_FEM_PRECONDITIONERS, calls)]
+            try:
+                vr = getattr(qa, fn)(ka, *sizes, solver, tmp, verbose=0, dtype=dtype, device=dev)
+            finally:
+                for r in restore:
+                    r()
+            (_, solve_s, (_, info)), = [c for c in calls if c[0] == "solve_helmholtz"]
+            pres = [c for c in calls if c[0] != "solve_helmholtz"]
+            extra = ""
+            if pres:
+                name, setup_s, pre = pres[0]
+                n = vr.parameters["n_nodes"]
+                r = torch.tensor(rng.normal(size=n) + 1j * rng.normal(size=n),
+                                 dtype=torch.complex128 if dtype == torch.float64 else torch.complex64,
+                                 device=dev)
+                # a profiler session can miss a short trace: the larger of two
+                launches = max(device_launches(lambda: pre.matvec(r)) for _ in range(2))
+                colors = f", {pre.n_colors} colors" if isinstance(pre, IluColored) else ""
+                extra = (f", {name} set-up {setup_s:.3f} s, {launches} device launches per "
+                         f"apply{colors}")
+            rows.append((vr, info, solve_s))
+            log(f"qa_fem {str(dtype)[6:]} {vr.name} (N = {vr.parameters['n_nodes']}): rel_l2 "
+                f"{vr.metrics.l2_relative:.6e}, solve {solve_s * 1e3:.1f} ms, iterations "
+                f"{info['iterations']}, converged {info['converged']}, residual "
+                f"{info.get('residual', 0.0):.3e}{extra}")
+        return rows
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) float64: the recorded run's precision
+        rows64, launches = counted(f"{len(cases)} cases in float64", counters,
+                                   lambda: run_cases(torch.float64, tmp), dev, path="qa_fem")
+        for vr, info, _ in rows64:
+            got, want = vr.metrics.l2_relative, recorded[vr.name]
+            limit = QA_REL * want + QA_ABS
+            log(f"qa_fem f64 {vr.name}: rel_l2 {got:.6e}, recorded {want:.6e}, diff "
+                f"{abs(got - want):.3e} (limit {limit:.3e})")
+            if not abs(got - want) <= limit:
+                raise AssertionError(f"qa_fem {vr.name}: rel_l2 {got:.6e} vs the recorded {want:.6e}")
+            if not info["converged"]:
+                raise AssertionError(f"qa_fem {vr.name} float64 did not converge: {info}")
+        # float32, the app's default on the card
+        rows32, _ = counted(f"{len(cases)} cases in float32", counters,
+                            lambda: run_cases(torch.float32, tmp), dev, path="qa_fem")
+        for (vr64, _, s64), (vr, info, s32) in zip(rows64, rows32):
+            got = vr.metrics.l2_relative
+            log(f"qa_fem {vr.name}: rel_l2 float32 {got:.6e} beside float64 "
+                f"{vr64.metrics.l2_relative:.6e} (threshold {QA_FEM_THRESHOLD:g}); solve ms "
+                f"float32 {s32 * 1e3:.1f}, float64 {s64 * 1e3:.1f}")
+            if not got < QA_FEM_THRESHOLD:
+                raise AssertionError(f"qa_fem {vr.name} float32: rel_l2 {got:.3e}, {info}")
+        if len(rows64) == 21 and {vr.name for vr, _, _ in rows64} != set(recorded):
+            raise AssertionError("the QA FEM cases are not the recorded run's 21")
+        rc, _ = counted("main --fast", counters, lambda: _quiet(qa.main, ["--fast", "-o", tmp]),
+                        dev, path="qa_fem")
+        with open(f"{tmp}/summary.json") as fh:
+            fast = json.load(fh)
+        log(f"qa_fem main --fast: exit {rc}, {fast['passed']}/{fast['total']} passed: "
+            + ", ".join(f"{c['name']} {c['rel_l2']:.3e}" for c in fast["cases"]))
+        if rc != 0:
+            raise AssertionError(f"qa_fem main --fast exited {rc}")
+
+    # (b) path 3 (c)'s rigid sphere through the new BemSolver routes
+    prob = BemProblem.rigid_sphere(PATH3_RIGID_KA, subdivisions=bem_subdiv)
+    where = dict(dtype=torch.float32, device=dev)
+    k = prob.physics.wave_number
+    counts = {"burton_miller": 0, "double_layer": 0}
+    runs = {}
+    for method, bm in [(m, True) for m in KRYLOV_ROUTES] + [("bicgstab", False)]:
+        cfg = BemSolverConfig(method=SolverMethod(method), burton_miller=bm,
+                              tolerance=PATH3_GMRES_TOL)
+        solver = BemSolver(cfg, **where)
+        label = f"(b) rigid sphere {method}{' Burton-Miller' if bm else ' CBIE'}"
+        t0 = time.perf_counter()
+        sol, launches = counted(label, counters, lambda: solver.solve(prob), dev, path="qa_fem")
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        variant = "burton_miller" if bm else "double_layer"
+        if launches != {variant: 1}:
+            raise AssertionError(f"qa_fem {label}: launches {launches}, not one {variant}")
+        counts[variant] += 1
+        if bm:
+            beta = solver.burton_miller_beta(prob)
+            a = assembly.assemble_burton_miller(prob.mesh, k, beta, **where)
+        else:
+            beta = 0.0
+            a = assembly.assemble_collocation_matrix(prob.mesh, k, **where)
+        centers = torch.tensor(prob.mesh.centers, **where)
+        normals = torch.tensor(prob.mesh.normals, **where)
+        b = prob.incident.pressure(centers, k)
+        if bm:
+            b = b - beta * prob.incident.normal_derivative(centers, normals, k)
+        res = float(torch.linalg.vector_norm(a @ sol.surface_pressure - b)
+                    / torch.linalg.vector_norm(b))
+        del a
+        torch.cuda.empty_cache()
+        log(f"qa_fem {label}: converged {sol.info['converged']}, iterations "
+            f"{sol.info['iterations']}, residual ||A p - b||/||b|| {res:.3e} (limit 1e-4), "
+            f"counted solve {solve_ms:.1f} ms")
+        if not (sol.info["converged"] and res <= 1e-4):
+            raise AssertionError(f"qa_fem {label}: {sol.info}, residual {res:.3e}")
+        runs[f"bem {method}{'' if bm else ' cbie'}"] = lambda s=solver: s.solve(prob)
+
+    twin = twin_pairwise(ops)
+    st = sweep.sweep_statics(icosphere(1.0, bem_subdiv), **where)
+    n = st.centers.shape[0]
+    ks = torch.tensor([k], **where)
+    records = {}
+    for variant, count in counts.items():
+        r = bem_kernel_record(f"f32 {n} x {n} F=1", ops, twin, variant,
+                              (st.centers, st.normals, st.qp, st.normals, st.qw, ks), True)
+        r["launches"] = count
+        records[variant] = [r]
+    log(f"qa_fem phase: {time.perf_counter() - t_phase:.1f} s")
+
+    def run_fast():
+        with tempfile.TemporaryDirectory() as tmp:
+            return _quiet(qa.main, ["--fast", "-o", tmp])
+
+    runs["qa_fem main --fast"] = run_fast
+    return records, runs
+
+
+def _spl_of(path):
+    """(SPL (F, L), converged, iterations) of a results JSON."""
+    import numpy as np
+
+    with open(path) as fh:
+        res = json.load(fh)["results"]
+    return (np.asarray([r["spl_db"] for r in res], float), [r["converged"] for r in res],
+            [r["iterations"] for r in res])
+
+
+def roomsim_fem_phase(dev, small=ROOMSIM_SMALL, wide=ROOMSIM_WIDE, wide_cuts=None):
+    """Phase 18 (path 11): (a) main(argv) on small_room.json, flat and
+    --hierarchical (complex64, the app's default), each within
+    ROOMSIM_FEM_DB of run_fem_simulation in float64 on the card, every
+    frequency converged; (b) nearfield_stereo.json at its own mesh
+    resolution with ROOMSIM_FEM_WIDE_CUTS (printed): 40 Hz converged, and at
+    40 Hz and the highest converged frequency the SPL within
+    ROOMSIM_FEM_DIRECT_DB of a float64 scipy sparse direct solve of the same
+    assembled system; per batch iterations, converged flags, ms per
+    frequency, batch size, peak memory and the idle share of a profiled
+    repeat. Returns callables for the profiler."""
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from mathaudio_tpu_torch.apps import roomsim_fem
+    from mathaudio_tpu_torch.common.config import RoomConfig
+    from mathaudio_tpu_torch.xtypes import SPEED_OF_SOUND, pressure_to_spl
+
+    t_phase = time.perf_counter()
+    cuts = dict(ROOMSIM_FEM_WIDE_CUTS if wide_cuts is None else wide_cuts)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) small_room.json, flat and hierarchical
+        for flags in ([], ["--hierarchical"]):
+            label = "small_room" + (" --hierarchical" if flags else "")
+            out = f"{tmp}/fem{len(flags)}.json"
+            argv = [str(small), "-o", out, "-v", "0"] + flags
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = _quiet(roomsim_fem.main, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            spl, conv, its = _spl_of(out)
+            ref = roomsim_fem.run_fem_simulation(RoomConfig.from_file(str(small)), verbose=0,
+                                                 hierarchical=bool(flags), dtype=torch.float64,
+                                                 device=dev)
+            spl64 = np.asarray([r.spl_db for r in ref.results], float)
+            diff = float(np.max(np.abs(spl - spl64)))
+            log(f"roomsim_fem {label}: exit {rc}, {wall:.3f} s (complex64), iterations {its} "
+                f"(float64 {[r.iterations for r in ref.results]}), converged {sum(conv)}/{len(conv)}, "
+                f"SPL max |complex64 - float64| {diff:.4f} dB (limit {ROOMSIM_FEM_DB})")
+            if rc != 0 or not all(conv) or not diff <= ROOMSIM_FEM_DB or not np.isfinite(spl).all():
+                raise AssertionError(f"roomsim_fem {label}: rc {rc}, converged {conv}, {diff} dB")
+            runs[f"roomsim_fem {label}"] = lambda argv=argv: _quiet(roomsim_fem.main, argv)
+
+    # (b) nearfield_stereo.json at its own resolution, cut
+    cfg = RoomConfig.from_file(str(wide))
+    full = cfg.to_simulation().frequencies
+    gm = cfg.solver.gmres
+    log(f"roomsim_fem nearfield_stereo cuts: {len(full)} -> {cuts['frequencies']} log-spaced "
+        f"frequencies over {full[0]:g}-{full[-1]:g} Hz; GMRES tolerance {gm.tolerance:g} -> "
+        f"{cuts['tolerance']:g} (below what complex64 resolves); max_iter {gm.max_iter} -> "
+        f"{cuts['max_iter']} ({cuts['max_iter'] * 10} iterations); batch {cuts['batch_size']} "
+        f"(the automatic batch would pad the {cuts['frequencies']} frequencies to 64 lanes)")
+    cfg.frequencies.num_points = cuts["frequencies"]
+    cfg.solver.gmres.tolerance = cuts["tolerance"]
+    cfg.solver.gmres.max_iter = cuts["max_iter"]
+    t0 = time.perf_counter()
+    sim = roomsim_fem.FemRoomSimulation(cfg, verbose=0, batch_size=cuts["batch_size"], device=dev)
+    torch.cuda.synchronize()
+    log(f"roomsim_fem nearfield_stereo: {sim.mesh.num_nodes} nodes, {sim.mesh.num_elements} tets, "
+        f"levels {[m.num_nodes for m in sim.mg.meshes]}, set-up {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    freqs = [float(r.frequency) for r in res.results]
+    conv = [r.converged for r in res.results]
+    its = [r.iterations for r in res.results]
+    ms = [r.solve_time_s * 1e3 for r in res.results]
+    log(f"roomsim_fem nearfield_stereo batch of {cuts['batch_size']}: frequencies "
+        f"{[round(f, 1) for f in freqs]}, iterations {its}, converged {conv}, {ms[0]:.1f} ms per "
+        f"frequency, peak memory {peak:.2f} GiB, run {wall:.2f} s (with the slice)")
+    if not conv[0]:
+        raise AssertionError("roomsim_fem nearfield_stereo: 40 Hz did not converge")
+    top = max(i for i, c in enumerate(conv) if c)
+    sim64 = roomsim_fem.FemRoomSimulation(cfg, verbose=0, dtype=torch.float64, device=dev)
+    asm = sim64.assembler
+    weights = sim64.source_weights(freqs)
+    for i in sorted({0, top}):
+        k = 2.0 * np.pi * freqs[i] / SPEED_OF_SOUND
+        coeffs = sim64._robin_coeffs([k])[:, 0]
+        vals = (asm.k_vals - k**2 * asm.m_vals).to(torch.complex128) + sum(
+            coeffs[t] * asm.b_vals[roomsim_fem.WALL_TAGS[w]].to(torch.complex128)
+            for t, w in enumerate(sim64.wall_names))
+        a = sp.csr_matrix((vals.cpu().numpy(), asm.csr.indices, asm.csr.indptr),
+                          shape=asm.csr.shape)
+        rhs = (sim64.rhs_stack.T @ torch.as_tensor(weights[i], device=dev).to(torch.complex128))
+        t0 = time.perf_counter()
+        x = spla.spsolve(a.tocsc(), rhs.cpu().numpy())
+        t_direct = time.perf_counter() - t0
+        p = x[sim64.listen_idx.cpu().numpy()]
+        spl_direct = pressure_to_spl(np.abs(p)).numpy()
+        diff = float(np.max(np.abs(np.asarray(res.results[i].spl_db) - spl_direct)))
+        log(f"roomsim_fem nearfield_stereo {freqs[i]:.1f} Hz: SPL {res.results[i].spl_db} dB, float64 "
+            f"sparse direct {spl_direct.tolist()} dB ({t_direct:.1f} s on the host), diff "
+            f"{diff:.4f} dB (limit {ROOMSIM_FEM_DIRECT_DB})")
+        if not diff <= ROOMSIM_FEM_DIRECT_DB:
+            raise AssertionError(f"roomsim_fem nearfield_stereo {freqs[i]:.1f} Hz: {diff} dB off")
+    # the idle share: the batch's first 30 Arnoldi steps under the profiler
+    # (~700 launches a step; the whole run would trace millions)
+    kcfg = sim._krylov()._replace(max_iterations=30, restart=30)
+    sweep = sim._sweep_fn(kcfg)
+    ks = [2.0 * np.pi * f / SPEED_OF_SOUND for f in freqs]
+    profile_run(f"roomsim_fem nearfield_stereo batch of {len(freqs)}, its first 30 steps",
+                lambda: sweep(ks, sim.source_weights(freqs), None), None)
+    log(f"roomsim_fem phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     import argparse
 
@@ -3007,6 +3390,18 @@ def main() -> int:
         if variant in bem_records:
             bem_records[variant]["launches"] += count
 
+    # 17. slices 6b and 6c: the general FEM problem, its solvers, the QA FEM
+    # suite, and the BemSolver routes of the other Krylov solvers
+    qa_fem_records, qa_fem_runs = qa_fem_phase(bem_assembly, dev, (dia, bem_assembly))
+    app_runs.update(qa_fem_runs)
+    for variant, recs in qa_fem_records.items():
+        for r in recs:
+            bem_records[variant].setdefault("other_shapes", []).append(r)
+            bem_records[variant]["launches"] += r["launches"]
+
+    # 18. slice 6c: the FEM room simulator
+    fem_app_runs = roomsim_fem_phase(dev)
+
     # profiles last, once every kernel has run
     if profile:
         profile_run("fem", lambda: sweep(params, ks), "dia_stencil")
@@ -3018,6 +3413,8 @@ def main() -> int:
         profile_run("autoeq fit (maxiter 100)", fit_run, None)
         for label, run in app_runs.items():
             profile_run(label, run, "bem_pairwise")
+        for label, run in fem_app_runs.items():
+            profile_run(label, run, None)
 
     kernels_line = {"kernels": dia_line + [
         dict(name=name, route="cuda", source=BEM_SOURCE, replaces=replaces, library_ms=None,

@@ -5,9 +5,9 @@ with LU or GMRES, or the matrix-free SLFMM with GMRES), BemSolution
 are the SLFMM and, for rigid problems, the MLFMM tree; mixed problems run
 the SLFMM under either, as the reference does.
 
-The BiCGStab/CGS/QMRCGStab solvers (slice 6b) and the device-mesh sharding
-(slice 8) are later slices of the port; each raises a ``ValueError`` that
-names its slice.
+Every dense solver method runs: LU, and Jacobi-preconditioned GMRES,
+BiCGStab, CGS or QMR-CGSTAB. The device-mesh sharding (slice 8) is a later
+slice of the port and raises a ``ValueError`` that names it.
 """
 
 from __future__ import annotations
@@ -42,11 +42,14 @@ from mathaudio_tpu_torch.bem.types import (
     SolverMethod,
 )
 from mathaudio_tpu_torch.solvers.direct import lu_solve
-from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
+from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, bicgstab, cgs, gmres, qmrcgstab
 from mathaudio_tpu_torch.solvers.preconditioners.basic import jacobi_preconditioner
 from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
 
-_PORTED_METHODS = (SolverMethod.LU, SolverMethod.GMRES, SolverMethod.GMRES_ILU)
+# The Krylov solver of each iterative method; GMRES_ILU runs Jacobi-GMRES,
+# as in the JAX package.
+_KRYLOV = {SolverMethod.BICGSTAB: bicgstab, SolverMethod.CGS: cgs,
+           SolverMethod.QMRCGSTAB: qmrcgstab}
 
 
 @dataclasses.dataclass
@@ -141,9 +144,6 @@ class BemSolver:
 
     def _check_config(self) -> None:
         cfg = self.config
-        if cfg.method not in _PORTED_METHODS:
-            raise ValueError(f"solver method {cfg.method.value!r} is not ported yet (slice 6b, "
-                             "the rest of the solvers); use LU or GMRES")
         if cfg.device_mesh is not None:
             raise ValueError("device_mesh sharding is not ported yet (slice 8, multi-GPU); "
                              "pass device_mesh=None")
@@ -163,7 +163,8 @@ class BemSolver:
             return lu_solve(a, b)
         kcfg = KrylovConfig(max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
                             restart=cfg.restart)
-        sol = gmres(a, b, config=kcfg, preconditioner=jacobi_preconditioner(torch.diagonal(a)))
+        solve = _KRYLOV.get(cfg.method, gmres)
+        sol = solve(a, b, config=kcfg, preconditioner=jacobi_preconditioner(torch.diagonal(a)))
         info["converged"] = bool(sol.converged)
         info["iterations"] = int(sol.iterations)
         return sol.x

@@ -122,9 +122,9 @@ class BemMethod(enum.Enum):
 
 
 class SolverMethod(enum.Enum):
-    """Linear solver of the assembled system. Only LU, GMRES and GMRES_ILU
-    (which runs Jacobi-preconditioned GMRES, as in the JAX package) are
-    ported; BemSolver raises a ValueError for the others."""
+    """Linear solver of the assembled system. The iterative methods are
+    Jacobi-preconditioned; GMRES_ILU runs Jacobi-GMRES, as in the JAX
+    package."""
 
     LU = "lu"
     GMRES = "gmres"

@@ -9,7 +9,10 @@ DIA offsets are rebuilt from each level's ``row_of_slot``/``col_of_slot``.
 ``room_params_from_numpy`` does the same for the frequency-major sweep's
 ``RoomParams``, and ``mg_builder_from_numpy`` for an ``MgBuilder``.
 ``sweep_statics_from_numpy`` does the same for the dense BEM sweep's
-``SweepStatics``.
+``SweepStatics``. ``amg_preconditioner_from_numpy``,
+``additive_schwarz_from_numpy`` and ``ilu_colored_from_numpy`` build the
+port's preconditioners from the reference's set-up arrays (read by field
+name as well), so the applies can be compared on the same set-up.
 
 For the single-frequency BEM engines the state is smaller: a surface mesh
 (nodes, elements), per-element boundary data, and a solved surface field.
@@ -33,10 +36,18 @@ from mathaudio_tpu_torch.bem.sweep import SweepStatics
 from mathaudio_tpu_torch.bem.types import BoundaryCondition
 from mathaudio_tpu_torch.dsp.iir import Biquad, BiquadFilterType, Peq
 from mathaudio_tpu_torch.fem.dia import DiaTables, dia_pattern
-from mathaudio_tpu_torch.fem.multigrid import MgBuilder, MgBuilderLevel
+from mathaudio_tpu_torch.fem.multigrid import MgBuilder, MgBuilderLevel, MgLevel, MgParams
 from mathaudio_tpu_torch.fem.multigrid_batched import DiaLevel
 from mathaudio_tpu_torch.models.helmholtz_room import RoomParams
 from mathaudio_tpu_torch.models.room_sweep_nm import NodeMajorParams
+from mathaudio_tpu_torch.solvers.operators import EllOperator
+from mathaudio_tpu_torch.solvers.preconditioners import (
+    AdditiveSchwarz,
+    AmgConfig,
+    AmgPreconditioner,
+    IluColored,
+    IluFixedPoint,
+)
 from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
 
 
@@ -195,3 +206,55 @@ def peq_from_numpy(rows) -> Peq:
             BiquadFilterType(name))
         peq.append((float(weight), Biquad(ft, float(freq), float(srate), float(q), float(db_gain))))
     return peq
+
+
+def _by_kind(device, dtype):
+    """numpy -> tensor on ``device``: integers to int64, complex values to
+    the complex dtype of the real ``dtype``, real values to ``dtype``."""
+    def tensor(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a, dtype=torch.int64, device=device)
+        want = complex_dtype_for(dtype) if np.iscomplexobj(a) else dtype
+        return torch.tensor(a, dtype=want, device=device)
+
+    return tensor
+
+
+def amg_preconditioner_from_numpy(tree, device=None, dtype=None) -> AmgPreconditioner:
+    """Port an ``AmgPreconditioner`` from the reference's hierarchy:
+    ``tree.mgp.levels`` (each with the ``MgLevel`` fields), the real-embedded
+    ``tree.mgp.coarse_inv`` and ``tree.config`` (the ``AmgConfig`` fields),
+    all leaves numpy; ``dtype`` is the real dtype (default float32)."""
+    tensor = _by_kind(resolve_device(device), dtype or default_float())
+    levels = tuple(MgLevel(*(tensor(getattr(lvl, f)) for f in MgLevel._fields))
+                   for lvl in tree.mgp.levels)
+    config = AmgConfig(**{f: getattr(tree.config, f) for f in AmgConfig.__dataclass_fields__})
+    return AmgPreconditioner._from_hierarchy(MgParams(levels, tensor(tree.mgp.coarse_inv)),
+                                             config)
+
+
+def additive_schwarz_from_numpy(tree, device=None, dtype=None) -> AdditiveSchwarz:
+    """Port an ``AdditiveSchwarz`` (or ``BlockJacobi``) from the reference's
+    numpy ``gather_idx``, ``inv_blocks``, ``weights`` and ``valid_mask``."""
+    tensor = _by_kind(resolve_device(device), dtype or default_float())
+    return AdditiveSchwarz(tensor(tree.gather_idx), tensor(tree.inv_blocks),
+                           tensor(tree.weights), tensor(tree.valid_mask))
+
+
+def ilu_colored_from_numpy(tree, device=None, dtype=None) -> IluColored:
+    """Port an ``IluColored`` from the reference's numpy leaves: ``perm``,
+    ``inv_perm`` and ``inner`` (``l_op`` and ``u_strict_op`` with
+    ``indices``, ``values``, ``num_cols``; ``u_diag_inv``; ``sweeps``)."""
+    device = resolve_device(device)
+    tensor = _by_kind(device, dtype or default_float())
+
+    def ell(op):
+        return EllOperator(tensor(op.indices), tensor(op.values), int(op.num_cols))
+
+    inner = tree.inner
+    return IluColored(
+        IluFixedPoint(ell(inner.l_op), ell(inner.u_strict_op), tensor(inner.u_diag_inv),
+                      int(inner.sweeps)),
+        tensor(tree.perm), tensor(tree.inv_perm),
+    )

@@ -113,6 +113,15 @@ def assemble_stiffness_mass(mesh: Mesh, dtype=None, quad_order: int = 2, *, devi
     return csr, k_vals, m_vals, meta
 
 
+def assemble_lumped_mass(mesh: Mesh, dtype=None, quad_order: int = 2, *, device=None):
+    """Row-sum lumped mass diagonal: (N,) with sum_j M_ij per node (its
+    total is the mesh measure), in ``dtype`` on ``device``."""
+    _csr, _k_vals, m_vals, meta = assemble_stiffness_mass(mesh, dtype, quad_order, device=device)
+    rows = torch.as_tensor(meta["row_of_slot"], dtype=torch.int64, device=m_vals.device)
+    return torch.zeros(mesh.num_nodes, dtype=m_vals.dtype, device=m_vals.device).index_add_(
+        0, rows, m_vals)
+
+
 def _lagrange_1d(nodes: np.ndarray, x: np.ndarray):
     """phi (nq, nv) and dphi (nq, nv) of the 1D Lagrange basis on `nodes`."""
     nv = len(nodes)

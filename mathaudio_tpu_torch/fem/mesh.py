@@ -1,9 +1,11 @@
-"""Host-side mesh container, the structured triangle and box generators
-and the icosphere surface (counterpart of mathaudio_tpu/fem/mesh.py; pure
-numpy).
+"""Host-side mesh container, the triangle and tetrahedron generators and
+the icosphere surface (counterpart of mathaudio_tpu/fem/mesh.py; pure
+numpy). The quadrilateral and hexahedral generators come with the rest of
+slice 6c.
 
 Boundary detection counts faces once (lexsort, no hash maps). Rectangle
-tags: 1=x_min, 2=x_max, 3=y_min, 4=y_max; the box adds 5=z_min, 6=z_max.
+tags: 1=x_min, 2=x_max, 3=y_min, 4=y_max; the box adds 5=z_min, 6=z_max;
+the disk tags its rim 1; annulus and spherical shell: 1=inner, 2=outer.
 """
 
 from __future__ import annotations
@@ -69,6 +71,15 @@ class Mesh:
         face_ok = node_ok[self.boundary_faces].all(axis=1)
         self.boundary_markers[face_ok] = tag
         return self
+
+    def boundary_nodes(self, tags=None) -> np.ndarray:
+        """Unique node ids on boundary faces (optionally only given tags)."""
+        if self.boundary_faces is None:
+            raise ValueError("detect_boundaries() must run before boundary_nodes()")
+        faces = self.boundary_faces
+        if tags is not None:
+            faces = faces[np.isin(self.boundary_markers, np.asarray(list(tags)))]
+        return np.unique(faces)
 
 
 def _tag_rectangle(mesh: Mesh, x_min, x_max, y_min, y_max, tol=1e-10):
@@ -152,6 +163,81 @@ def box_mesh_tetrahedra(x_min, x_max, y_min, y_max, z_min, z_max, nx, ny, nz) ->
     )
     mesh = Mesh(3, nodes, elements.astype(np.int64), TET).detect_boundaries()
     return _tag_box(mesh, x_min, x_max, y_min, y_max, z_min, z_max)
+
+
+def circular_mesh_triangles(radius: float, n_rings: int) -> Mesh:
+    """Disk mesh: a centre fan and ring strips; the rim is tagged 1."""
+    nodes = [np.zeros((1, 2))]
+    ring_start = [0]
+    for r in range(1, n_rings + 1):
+        n_theta = 6 * r
+        theta = np.linspace(0, 2 * np.pi, n_theta, endpoint=False)
+        rr = radius * r / n_rings
+        nodes.append(np.stack([rr * np.cos(theta), rr * np.sin(theta)], axis=1))
+        ring_start.append(ring_start[-1] + len(nodes[-2]))
+    nodes = np.concatenate(nodes, axis=0)
+    elements = [[0, 1 + t, 1 + (t + 1) % 6] for t in range(6)]  # centre fan
+    for r in range(1, n_rings):  # ring strips
+        inner_n, outer_n = 6 * r, 6 * (r + 1)
+        inner0, outer0 = ring_start[r], ring_start[r + 1]
+        for t in range(outer_n):
+            o1 = outer0 + t
+            o2 = outer0 + (t + 1) % outer_n
+            i1 = inner0 + int(np.floor(t * inner_n / outer_n)) % inner_n
+            i2 = inner0 + int(np.ceil(t * inner_n / outer_n)) % inner_n
+            elements.append([o1, o2, i1])
+            if i1 != i2:
+                elements.append([o2, i2, i1])
+    mesh = Mesh(2, nodes, np.asarray(elements, np.int64), TRIANGLE).detect_boundaries()
+    mesh.set_marker(1, lambda p: np.abs(np.linalg.norm(p, axis=1) - radius) < 1e-8 * max(radius, 1))
+    return mesh
+
+
+def annular_mesh_triangles(r_inner: float, r_outer: float, n_radial: int, n_theta: int) -> Mesh:
+    """Annulus for 2D scattering: n_radial x n_theta cells of 2 triangles;
+    tags 1=inner, 2=outer."""
+    rs = np.linspace(r_inner, r_outer, n_radial + 1)
+    theta = np.linspace(0, 2 * np.pi, n_theta, endpoint=False)
+    rr, tt = np.meshgrid(rs, theta, indexing="ij")
+    nodes = np.stack([(rr * np.cos(tt)).reshape(-1), (rr * np.sin(tt)).reshape(-1)], axis=1)
+    ir, it = np.meshgrid(np.arange(n_radial), np.arange(n_theta), indexing="ij")
+    a = ir * n_theta + it
+    b = ir * n_theta + (it + 1) % n_theta
+    c = (ir + 1) * n_theta + (it + 1) % n_theta
+    d = (ir + 1) * n_theta + it
+    # per cell [a, b, c] then [a, c, d], cells in (ir, it) order
+    elements = np.stack([np.stack([a, b, c], -1), np.stack([a, c, d], -1)], axis=2)
+    mesh = Mesh(2, nodes, elements.reshape(-1, 3).astype(np.int64), TRIANGLE).detect_boundaries()
+    tol = 1e-8 * max(r_outer, 1.0)
+    mesh.set_marker(1, lambda p: np.abs(np.linalg.norm(p, axis=1) - r_inner) < tol)
+    mesh.set_marker(2, lambda p: np.abs(np.linalg.norm(p, axis=1) - r_outer) < tol)
+    return mesh
+
+
+def spherical_shell_mesh_tetrahedra(r_inner: float, r_outer: float, n_radial: int,
+                                    subdivisions: int = 2) -> Mesh:
+    """Shell between two spheres for 3D scattering: radial layers of the
+    icosphere surface, each prism between consecutive layers split into 3
+    tets along the global vertex order (conforming faces, no polar
+    degeneracy). Tags: 1=inner sphere, 2=outer sphere."""
+    surf_v, surf_f = _icosphere_surface(subdivisions)
+    nv = len(surf_v)
+    rs = np.linspace(r_inner, r_outer, n_radial + 1)
+    nodes = np.concatenate([r * surf_v for r in rs], axis=0)
+    # each face's vertices sorted by global id: p0 < p1 < p2
+    ordered = np.sort(surf_f, axis=1)
+    elements = []
+    for layer in range(n_radial):
+        p0, p1, p2 = (layer * nv + ordered).T
+        q0, q1, q2 = ((layer + 1) * nv + ordered).T
+        prism = np.stack([np.stack([p0, p1, p2, q0], -1), np.stack([p1, p2, q0, q1], -1),
+                          np.stack([p2, q0, q1, q2], -1)], axis=1)
+        elements.append(prism.reshape(-1, 4))
+    mesh = Mesh(3, nodes, np.concatenate(elements).astype(np.int64), TET).detect_boundaries()
+    tol = 1e-8 * max(r_outer, 1.0)
+    mesh.set_marker(1, lambda p: np.abs(np.linalg.norm(p, axis=1) - r_inner) < tol)
+    mesh.set_marker(2, lambda p: np.abs(np.linalg.norm(p, axis=1) - r_outer) < tol)
+    return mesh
 
 
 def unit_square_triangles(n: int) -> Mesh:

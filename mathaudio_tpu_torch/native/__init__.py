@@ -1,16 +1,19 @@
 """Host C++ setup kernels (counterpart of mathaudio_tpu/native), built
 with ``g++`` at first use and loaded through ctypes.
 
-``kernels.cpp`` holds the ILU(0) factorization of the FMM near field: a
+``kernels.cpp`` holds the ILU(0) factorization (of the FMM near field: a
 sequential pointer-chasing pass over a CSR matrix with about a thousand
-nonzeros per row at room sizes, which a Python loop would take hours over.
+nonzeros per row at room sizes, which a Python loop would take hours
+over; and of the general FEM problem), PMIS coarsening for AMG and greedy
+multicoloring for the colored ILU.
 ``load()`` compiles it into ``_build/libmathaudio_native-<hash>.so`` (the
 hash covers the source and the flags, so an edited source rebuilds).
 Nothing is built while this package is imported.
 
-A build failure raises; no path falls back to the Python loop, which
-stays beside it as the plain twin the tests hold the C++ against
-(``solvers/preconditioners/ilu.py::_ilu0_factor_python``).
+A build failure raises; no path falls back to the Python loops, which
+stay beside their callers as the plain twins the tests hold the C++
+against (``solvers/preconditioners/ilu.py::_ilu0_factor_python`` and
+``_greedy_coloring_python``, ``solvers/preconditioners/amg.py::_pmis_python``).
 """
 
 from __future__ import annotations
@@ -72,6 +75,14 @@ def load() -> ctypes.CDLL:
         lib.ilu0_factor_complex.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ]
+        lib.pmis_coarsen.restype = None
+        lib.pmis_coarsen.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.greedy_coloring.restype = None
+        lib.greedy_coloring.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ]
         _lib = lib
     return _lib
 
@@ -93,3 +104,39 @@ def ilu0_factor_inplace(indptr: np.ndarray, indices: np.ndarray, data: np.ndarra
                                     data.ctypes.data, n)
     if rc != 0:
         raise RuntimeError(f"ilu0_factor_complex returned {rc}")
+
+
+def _graph(indptr: np.ndarray, indices: np.ndarray):
+    """Contiguous (int64 indptr, int32 indices, n) of a square CSR graph,
+    checked before its pointers reach the C++."""
+    indptr64 = np.ascontiguousarray(indptr, np.int64)
+    indices32 = np.ascontiguousarray(indices, np.int32)
+    n = len(indptr64) - 1
+    if indptr64[-1] != len(indices32):
+        raise ValueError(f"CSR arrays disagree: indptr ends at {indptr64[-1]}, "
+                         f"{len(indices32)} indices")
+    if len(indices32) and (indices32.min() < 0 or indices32.max() >= n):
+        raise ValueError("a column index lies outside the square graph")
+    return indptr64, indices32, n
+
+
+def pmis_coarsen(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray) -> np.ndarray:
+    """PMIS coarsening of a symmetric graph with node ``weights``: bool
+    is_coarse (N,)."""
+    indptr64, indices32, n = _graph(indptr, indices)
+    w = np.ascontiguousarray(weights, np.float64)
+    if len(w) != n:
+        raise ValueError(f"{len(w)} weights for {n} nodes")
+    state = np.zeros(n, np.int8)
+    load().pmis_coarsen(indptr64.ctypes.data, indices32.ctypes.data, w.ctypes.data,
+                        state.ctypes.data, n)
+    return state == 1
+
+
+def greedy_coloring(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Greedy multicoloring of a symmetric graph in row order: int32
+    colors (N,)."""
+    indptr64, indices32, n = _graph(indptr, indices)
+    colors = np.zeros(n, np.int32)
+    load().greedy_coloring(indptr64.ctypes.data, indices32.ctypes.data, colors.ctypes.data, n)
+    return colors

@@ -1,9 +1,6 @@
 """Device-resident linear algebra: operators, sparse formats, Krylov
-solvers, preconditioners (counterpart of mathaudio_tpu/solvers).
-
-Re-exports the reference's names that are ported; CG, BiCGStab, CGS,
-QMRCGStab, ``LuFactorization``, ``blas`` and the colored ILU, Schwarz and
-AMG preconditioners come with slice 6b of the port.
+solvers, preconditioners (counterpart of mathaudio_tpu/solvers), with the
+reference's re-exports in its order.
 """
 
 from mathaudio_tpu_torch.solvers.operators import (  # noqa: F401
@@ -17,11 +14,21 @@ from mathaudio_tpu_torch.solvers.sparse import CsrMatrix, EllMatrix  # noqa: F40
 from mathaudio_tpu_torch.solvers.krylov import (  # noqa: F401
     KrylovConfig,
     KrylovSolution,
+    cg,
+    bicgstab,
+    cgs,
+    qmrcgstab,
     gmres,
 )
-from mathaudio_tpu_torch.solvers.direct import lu_solve, complex_solve  # noqa: F401
+from mathaudio_tpu_torch.solvers.direct import lu_solve, complex_solve, LuFactorization  # noqa: F401
 from mathaudio_tpu_torch.solvers.preconditioners import (  # noqa: F401
     identity_preconditioner,
     jacobi_preconditioner,
+    IluColored,
     IluFixedPoint,
+    BlockJacobi,
+    AdditiveSchwarz,
+    AmgConfig,
+    AmgPreconditioner,
 )
+from mathaudio_tpu_torch.solvers import blas  # noqa: F401

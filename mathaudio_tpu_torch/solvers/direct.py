@@ -1,5 +1,5 @@
-"""Dense direct solve (counterpart of mathaudio_tpu/solvers/direct.py
-``complex_solve`` and ``lu_solve``, native path).
+"""Dense direct solve and reusable LU factors (counterpart of
+mathaudio_tpu/solvers/direct.py, native path).
 
 The reference embeds a complex system in a real 2N x 2N one on the TPU,
 which has no complex LU (its ``method="embed"``, and any value but "auto"
@@ -8,6 +8,8 @@ every ``method``, batched over any leading dimensions.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -26,3 +28,28 @@ def complex_solve(a, b, method: str = "auto"):
 def lu_solve(a, b, method: str = "auto"):
     """One-shot dense solve of A x = b."""
     return complex_solve(a, b, method=method)
+
+
+class LuFactorization(NamedTuple):
+    """Reusable LU factors of a square matrix (``torch.linalg.lu_factor``).
+
+    The reference stores the real-embedded 2N x 2N factors when asked to
+    ``embed`` (its TPU path); here every ``method`` factors the matrix in
+    its own dtype, complex included, so ``embedded`` is always False."""
+
+    lu: torch.Tensor
+    piv: torch.Tensor
+    embedded: bool
+    n: int
+
+    @classmethod
+    def factor(cls, a, method: str = "auto"):
+        del method  # every method runs the native LU (module notes)
+        lu, piv = torch.linalg.lu_factor(a)
+        return cls(lu, piv, False, a.shape[0])
+
+    def solve(self, b):
+        """x with A x = b for (N,) or (N, K) b."""
+        vec = b.dim() == 1
+        x = torch.linalg.lu_solve(self.lu, self.piv, b[:, None] if vec else b)
+        return x[:, 0] if vec else x

@@ -9,6 +9,13 @@ inside the cycle, convergence decided on the Givens residual), so the
 iteration counts match it lane for lane. The reference's
 ``lax.while_loop`` becomes a Python loop whose condition is read on the
 host once per restart cycle.
+
+``vmapped=True`` follows instead ``vmap`` of the single-vector ``gmres``
+(the reference's per-frequency solves batched by ``jax.vmap``): a restart
+cycle stops once every lane is done (one host read per Arnoldi step), and
+a lane that has converged or spent its budget keeps its x, iterations and
+residual while the others restart. The arithmetic of each lane is the same
+in both modes.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ def _expand(h, bj):
 
 
 def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner=None,
-                  orth: str = "cgs2", x0=None, a_res=None):
+                  orth: str = "cgs2", x0=None, a_res=None, vmapped: bool = False):
     """Solve F systems A_f x_f = b_f, vectors stored (N, F).
 
     ``a_mv`` / ``preconditioner``: (N, F) -> (N, F), applying each lane's
@@ -48,7 +55,10 @@ def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner
 
     ``orth``: "cgs2" (two classical Gram-Schmidt passes) or "cgs1" (one
     pass; safe only for strongly preconditioned short cycles such as the
-    MG-preconditioned room sweep at restart 6)."""
+    MG-preconditioned room sweep at restart 6).
+
+    ``vmapped``: the lane semantics of the vmapped single-vector solver
+    (module notes)."""
     if orth not in ("cgs1", "cgs2"):
         raise ValueError(f"unknown orthogonalization {orth!r}")
     m_mv = preconditioner if preconditioner is not None else (lambda v: v)
@@ -89,7 +99,11 @@ def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner
 
         # Arnoldi unrolled over j: each projection reads only the j + 1
         # basis vectors that exist.
+        steps = m
         for j in range(m):
+            if vmapped and not bool(torch.any(~done)):
+                steps = j  # the remaining steps would be no-ops on every lane
+                break
             cnt = cnt + torch.where(done, 0, 1).to(torch.int32)
             w = m_mv(a_mv(basis[j]))
             bj = basis[: j + 1]
@@ -124,18 +138,19 @@ def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner
             res = torch.where(done, res, new_res)
             done = done | (new_res <= tol)
 
-        # Per-lane back-substitution R y = g (m x m upper triangular).
-        ar = torch.arange(m, device=dev)
-        diag = torch.abs(hess[ar, ar])  # (m, F)
+        # Per-lane back-substitution R y = g (upper triangular) over the
+        # steps taken; the rows of steps not taken are zero (y = 0 there).
+        ar = torch.arange(steps, device=dev)
+        diag = torch.abs(hess[ar, ar])  # (steps, F)
         ok = diag > 1e-30
-        rhs = torch.where(ok, g[:m], 0)
-        y = torch.zeros((m, nf), dtype=dtype, device=dev)
+        rhs = torch.where(ok, g[:steps], 0)
+        y = torch.zeros((steps, nf), dtype=dtype, device=dev)
         one = torch.ones((), dtype=dtype, device=dev)
-        for i in range(m - 1, -1, -1):
-            acc = rhs[i] - torch.sum(hess[i, :, :] * y, dim=0)
+        for i in range(steps - 1, -1, -1):
+            acc = rhs[i] - torch.sum(hess[i, :steps, :] * y, dim=0)
             di = torch.where(ok[i], hess[i, i], one)
             y[i] = torch.where(ok[i], acc / di, 0)
-        x_new = x + _expand(y, basis[:m])
+        x_new = x + _expand(y, basis[:steps]) if steps else x
         return x_new, total_it + cnt, res
 
     r_init = _bnorm(r_pre0)
@@ -145,10 +160,18 @@ def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner
 
     x, it, res = cycle(x0, r_pre0, torch.zeros((nf,), dtype=torch.int32, device=dev))
     converged = res <= tol
-    # Converged lanes ride along unchanged: their restart residual is below
-    # tol, so the cycle's done-mask leaves them untouched.
-    while bool(torch.any((~converged) & (it < config.max_iterations))):
+    active = (~converged) & (it < config.max_iterations)
+    # Converged lanes ride along: their restart residual is below tol, so the
+    # cycle's done-mask leaves them untouched (``vmapped`` freezes them).
+    while bool(torch.any(active)):
         r_pre = m_mv(a_res(b, x))
-        x, it, res = cycle(x, r_pre, it)
+        x_new, it_new, res_new = cycle(x, r_pre, it)
+        if vmapped:
+            x = torch.where(active[None, :], x_new, x)
+            it = torch.where(active, it_new, it)
+            res = torch.where(active, res_new, res)
+        else:
+            x, it, res = x_new, it_new, res_new
         converged = res <= tol
+        active = (~converged) & (it < config.max_iterations)
     return KrylovSolution(x, it, res / b_norm, converged)

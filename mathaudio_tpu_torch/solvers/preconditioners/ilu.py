@@ -1,14 +1,13 @@
-"""ILU(0) with fixed-point triangular applies (counterpart of
-mathaudio_tpu/solvers/preconditioners/ilu.py: ``ilu0_factor``,
-``_split_lu`` and ``IluFixedPoint``; the graph-colored variant comes with
-slice 6b).
+"""ILU(0) with fixed-point triangular applies, and its graph-colored
+variant (counterpart of mathaudio_tpu/solvers/preconditioners/ilu.py).
 
 Factorization: IKJ ILU(0) on the host, on the CSR sparsity, by the C++
 kernel of ``mathaudio_tpu_torch.native`` (built with g++ at first use; a
-build failure raises). The Python loop ``_ilu0_factor_python`` is its
-plain twin, held against it by the tests. Apply: Jacobi fixed-point
-sweeps on L and U, each sweep one ELL matvec (a gather and a row
-reduction) on the device.
+build failure raises); the greedy coloring of the colored variant by the
+same library. The Python loops ``_ilu0_factor_python`` and
+``_greedy_coloring_python`` are their plain twins, held against them by
+the tests. Apply: Jacobi fixed-point sweeps on L and U, each sweep one ELL
+matvec (a gather and a row reduction) on the device.
 """
 
 from __future__ import annotations
@@ -127,3 +126,77 @@ class IluFixedPoint(LinearOperator):
 
         return IluFixedPoint(ell(self.l_op), ell(self.u_strict_op),
                              to_precision(self.u_diag_inv, dtype, device), self.sweeps)
+
+
+def _symmetric_graph(csr: CsrMatrix):
+    """The symmetrized sparsity graph of ``csr`` (scipy CSR, int8 ones)."""
+    import scipy.sparse as sp
+
+    a = sp.csr_matrix(
+        (np.ones_like(csr.data, dtype=np.int8), csr.indices, csr.indptr), shape=csr.shape
+    )
+    return (a + a.T).tocsr()
+
+
+def greedy_coloring(csr: CsrMatrix) -> np.ndarray:
+    """Greedy multicoloring of the symmetrized sparsity graph, by the
+    native C++ kernel: adjacent rows get different colors, so within a
+    color the triangular factors have no couplings. int32 (N,)."""
+    s = _symmetric_graph(csr)
+    return native.greedy_coloring(s.indptr, s.indices)
+
+
+def _greedy_coloring_python(csr: CsrMatrix) -> np.ndarray:
+    """The reference's Python loop: the plain twin of ``greedy_coloring``."""
+    s = _symmetric_graph(csr)
+    colors = np.full(csr.shape[0], -1, np.int32)
+    for i in range(csr.shape[0]):
+        nbr = s.indices[s.indptr[i]: s.indptr[i + 1]]
+        used = set(colors[nbr[colors[nbr] >= 0]].tolist())
+        c = 0
+        while c in used:
+            c += 1
+        colors[i] = c
+    return colors
+
+
+class IluColored(LinearOperator):
+    """Graph-coloring ILU(0): rows permuted by color make the strictly
+    triangular factors nilpotent of degree n_colors, so n_colors Jacobi
+    sweeps solve L and U exactly, each sweep one ELL matvec. An apply is
+    2 n_colors sweeps (each color one group of launches on the card) and
+    the two permutation gathers."""
+
+    def __init__(self, inner: IluFixedPoint, perm, inv_perm):
+        self.inner = inner
+        self.perm = perm
+        self.inv_perm = inv_perm
+
+    @classmethod
+    def from_csr(cls, csr: CsrMatrix, *, device=None):
+        """Color, permute and factor ``csr`` on the host; the factors go to
+        ``device`` (default ``cuda``) as ``IluFixedPoint.from_csr`` puts
+        them."""
+        import scipy.sparse as sp
+
+        device = resolve_device(device)
+        colors = greedy_coloring(csr)
+        n_colors = int(colors.max()) + 1
+        perm = np.argsort(colors, kind="stable")
+        a = sp.csr_matrix((csr.data, csr.indices, csr.indptr), shape=csr.shape)
+        ap = a[perm][:, perm].tocsr()
+        ap.sort_indices()
+        csr_p = CsrMatrix(
+            ap.indptr.astype(np.int64), ap.indices.astype(np.int64), ap.data, csr.shape
+        )
+        inner = IluFixedPoint.from_csr(csr_p, sweeps=n_colors, device=device)
+        inv_perm = np.argsort(perm)
+        return cls(inner, torch.as_tensor(perm, device=device),
+                   torch.as_tensor(inv_perm, device=device))
+
+    @property
+    def n_colors(self) -> int:
+        return self.inner.sweeps
+
+    def matvec(self, r):
+        return self.inner.matvec(r[self.perm])[self.inv_perm]

@@ -759,16 +759,8 @@ PACKAGES = ("", ".models", ".fem", ".solvers", ".solvers.preconditioners", ".ops
 # Re-exported names whose modules (or parts of them) are later slices.
 UNPORTED_EXPORTS = {
     ".fem": {name: "slice 6c" for name in (
-        "rectangular_mesh_quads", "box_mesh_hexahedra", "circular_mesh_triangles",
-        "annular_mesh_triangles", "spherical_shell_mesh_tetrahedra", "unit_square_quads",
-        "unit_cube_hexahedra", "assemble_lumped_mass", "DirichletBC", "RobinBC", "NeumannBC",
-        "HelmholtzProblem", "solve_helmholtz")},
-    ".solvers": {name: "slice 6b" for name in (
-        "cg", "bicgstab", "cgs", "qmrcgstab", "LuFactorization", "IluColored", "BlockJacobi",
-        "AdditiveSchwarz", "AmgConfig", "AmgPreconditioner", "blas")},
-    ".solvers.preconditioners": {name: "slice 6b" for name in (
-        "IluColored", "greedy_coloring", "AdditiveSchwarz", "BlockJacobi", "AmgConfig",
-        "AmgPreconditioner")},
+        "rectangular_mesh_quads", "box_mesh_hexahedra", "unit_square_quads",
+        "unit_cube_hexahedra")},
 }
 
 
@@ -834,3 +826,95 @@ def test_xla_forms_match_the_reference_at_a_scalar_k(bem_inputs, name):
         assert tuple(g.shape) == np.shape(r)
         np.testing.assert_allclose(_off_diagonal(g.numpy()), _off_diagonal(np.asarray(r)),
                                    rtol=0, atol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# Slices 6b and 6c: the Krylov family, the vector helpers, the reusable LU,
+# the colored ILU, Schwarz and AMG preconditioners with their native set-up,
+# the general FEM problem with its boundary conditions, the triangle and tet
+# generators of the scattering meshes, the lumped mass, the memory budget and
+# the two FEM apps. The extras are keyword-only ``dtype`` and ``device``,
+# each defaulting to None.
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.apps.qa_suite_fem as jax_qa_fem  # noqa: E402
+import mathaudio_tpu.apps.roomsim_fem as jax_roomsim_fem  # noqa: E402
+import mathaudio_tpu.fem.boundary as jax_boundary  # noqa: E402
+import mathaudio_tpu.fem.problem as jax_problem  # noqa: E402
+import mathaudio_tpu.solvers.blas as jax_blas  # noqa: E402
+import mathaudio_tpu.solvers.preconditioners.amg as jax_amg  # noqa: E402
+import mathaudio_tpu.solvers.preconditioners.schwarz as jax_schwarz  # noqa: E402
+import mathaudio_tpu.utils.memory as jax_memory  # noqa: E402
+import mathaudio_tpu_torch.apps.qa_suite_fem as port_qa_fem  # noqa: E402
+import mathaudio_tpu_torch.apps.roomsim_fem as port_roomsim_fem  # noqa: E402
+import mathaudio_tpu_torch.fem.boundary as port_boundary  # noqa: E402
+import mathaudio_tpu_torch.fem.problem as port_problem  # noqa: E402
+import mathaudio_tpu_torch.solvers.blas as port_blas  # noqa: E402
+import mathaudio_tpu_torch.solvers.preconditioners.amg as port_amg  # noqa: E402
+import mathaudio_tpu_torch.solvers.preconditioners.schwarz as port_schwarz  # noqa: E402
+import mathaudio_tpu_torch.utils.memory as port_memory  # noqa: E402
+
+SLICE_6_MODULES = {
+    "solvers.krylov": (krylov, jax_krylov),
+    "solvers.blas": (port_blas, jax_blas),
+    "solvers.direct": (direct, jax_direct),
+    "solvers.preconditioners.ilu": (port_ilu, jax_ilu),
+    "solvers.preconditioners.schwarz": (port_schwarz, jax_schwarz),
+    "solvers.preconditioners.amg": (port_amg, jax_amg),
+    "native": (port_native, jax_native),
+    "fem.mesh": (mesh, jax_mesh),
+    "fem.assembly": (assembly, jax_assembly),
+    "fem.boundary": (port_boundary, jax_boundary),
+    "fem.problem": (port_problem, jax_problem),
+    "utils.memory": (port_memory, jax_memory),
+    "apps.qa_suite_fem": (port_qa_fem, jax_qa_fem),
+    "apps.roomsim_fem": (port_roomsim_fem, jax_roomsim_fem),
+}
+# What slice 6 ports of modules that other slices share: the reference's
+# load_native (a build that may fall back to Python) is the port's
+# native.load (which raises instead); the quadrilateral and hexahedral
+# generators and their bases are the rest of slice 6c.
+SLICE_6_PARTIAL = {
+    "native": ("pmis_coarsen", "greedy_coloring", "ilu0_factor_inplace"),
+    "fem.mesh": ("annular_mesh_triangles", "spherical_shell_mesh_tetrahedra",
+                 "circular_mesh_triangles", "Mesh.boundary_nodes"),
+    "fem.assembly": ("assemble_lumped_mass",),
+}
+SLICE_6_FUNCTIONS = [
+    (where, q) for where, (_, ref) in SLICE_6_MODULES.items()
+    for q in SLICE_6_PARTIAL.get(where, [n for n in _public_callables(ref)
+                                         if not n.endswith(("tree_flatten", "tree_unflatten"))])
+]
+
+
+def test_slice_6_covers_its_modules():
+    assert len(SLICE_6_FUNCTIONS) >= 70
+    for where, qualname in (("solvers.krylov", "qmrcgstab"),
+                            ("solvers.krylov", "gmres_pipelined_ghysels"),
+                            ("solvers.preconditioners.ilu", "IluColored.from_csr"),
+                            ("solvers.preconditioners.amg", "AmgConfig.for_difficult_problems"),
+                            ("solvers.preconditioners.schwarz", "BlockJacobi.from_csr"),
+                            ("fem.problem", "solve_helmholtz"), ("fem.boundary", "RobinBC.admittance"),
+                            ("apps.roomsim_fem", "FemRoomSimulation.run"),
+                            ("apps.qa_suite_fem", "sphere_case"), ("utils.memory", "hbm_frequency_batch")):
+        assert (where, qualname) in SLICE_6_FUNCTIONS
+    for where, (port_mod, ref_mod) in SLICE_6_MODULES.items():
+        names = SLICE_6_PARTIAL.get(where, _public_callables(ref_mod))
+        assert all(hasattr(port_mod, q.split(".")[0]) for q in names)
+
+
+@pytest.mark.parametrize("where,qualname", SLICE_6_FUNCTIONS,
+                         ids=[f"{w}:{q}" for w, q in SLICE_6_FUNCTIONS])
+def test_slice_6_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE_6_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    ref_names = {r.name for r in ref}
+    extras = [p for p in port if p.name in ("dtype", "device") and p.name not in ref_names]
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None
+               for p in extras), extras
