@@ -12,7 +12,14 @@ Burton–Miller), and the single-frequency paths' one wavenumber
 (``burton_miller`` at ka = 2, the rigid sphere; ``mixed`` and ``mixed_bm``
 at ka = 1 on the surface's own 5120 x 5120 pairs; ``kh`` and ``kh_double``
 at the 8192 field points on r = 2, ``kh`` also at the cavity's 512 points
-on r = 0.5). Each shape is timed two ways: ``stream_ms``, CUDA events
+on r = 0.5). Slice 4c's shapes follow on the all-quad cube sphere
+(cube_sphere(1.0, 29): N = 5046 bilinear quads, nq = 4): ``double_layer``
+at ka = 1, ``burton_miller`` at ka = 2, ``kh_double`` at the 8192 field
+points. So that a time can be told apart between the quads' data and their
+row length, ``burton_miller`` at ka = 2 also runs on the icosphere's first
+5046, 5048 and 5056 elements against themselves (rows of 5046, 5048 and 5056
+outputs: only the last is a whole number of 128-byte lines per complex64
+row). Each shape is timed two ways: ``stream_ms``, CUDA events
 around 10 launches issued back to back from Python (what the paths see);
 and ``graph_ms``, the same 10 launches captured once in a CUDA graph and
 replayed (the card's time per launch, without the host). Each is the
@@ -21,7 +28,7 @@ median of 7 batches after a warm-up (chip_smoke.py's ``time_ms`` and
 
 To compare two versions, time them in turns on the same card (parent,
 change, change, parent): ``--repo`` imports the package from DIR, which
-builds its kernel from its own sources.
+builds its kernel from its own sources (and must have ``cube_sphere``).
 
     python3 bem_bench.py --sass           # machine-code counts
 
@@ -52,18 +59,26 @@ from pathlib import Path
 from chip_smoke import (BEM_BAND, BEM_FREQS, BEM_SUBDIV, CAVITY_SHAPE, FIELD_SHAPE, PATH3_KA,
                         PATH3_RIGID_KA, gpu_line, graph_ms, time_ms)
 
-# (variant, points, ks): the launches of the BEM paths; 8192 field points on
-# r = 2, the cavity's 512 on r = 0.5
+# (variant, surface, points, ks): the launches of the BEM paths; 8192 field
+# points on r = 2, the cavity's 512 on r = 0.5; "quads" is phase 19's cube
+# sphere, "ico:N" the icosphere's first N elements
 SHAPES = (
-    ("double_layer", "surface", "band"),
-    ("burton_miller", "surface", "band"),
-    ("burton_miller", "surface", (PATH3_RIGID_KA,)),
-    ("mixed", "surface", (PATH3_KA,)),
-    ("mixed_bm", "surface", (PATH3_KA,)),
-    ("kh", "field", (PATH3_KA,)),
-    ("kh", "cavity", (PATH3_KA,)),
-    ("kh_double", "field", (PATH3_RIGID_KA,)),
+    ("double_layer", "ico", "surface", "band"),
+    ("burton_miller", "ico", "surface", "band"),
+    ("burton_miller", "ico", "surface", (PATH3_RIGID_KA,)),
+    ("mixed", "ico", "surface", (PATH3_KA,)),
+    ("mixed_bm", "ico", "surface", (PATH3_KA,)),
+    ("kh", "ico", "field", (PATH3_KA,)),
+    ("kh", "ico", "cavity", (PATH3_KA,)),
+    ("kh_double", "ico", "field", (PATH3_RIGID_KA,)),
+    ("double_layer", "quads", "surface", (PATH3_KA,)),
+    ("burton_miller", "quads", "surface", (PATH3_RIGID_KA,)),
+    ("kh_double", "quads", "field", (PATH3_RIGID_KA,)),
+    ("burton_miller", "ico:5046", "surface", (PATH3_RIGID_KA,)),
+    ("burton_miller", "ico:5048", "surface", (PATH3_RIGID_KA,)),
+    ("burton_miller", "ico:5056", "surface", (PATH3_RIGID_KA,)),
 )
+QUAD_N = 29  # chip_smoke.py's QUAD_N
 
 
 FLAG_VARIANTS = {1: "double_layer", 5: "burton_miller", 3: "mixed", 15: "mixed_bm", 2: "kh",
@@ -155,7 +170,7 @@ def main() -> int:
         print("bem_bench: no CUDA device is available", file=sys.stderr)
         return 1
     from mathaudio_tpu_torch.bem import sweep
-    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.bem.mesh import cube_sphere, icosphere
     from mathaudio_tpu_torch.bem.postprocess import generate_sphere_eval_points
     from mathaudio_tpu_torch.ops import bem_assembly as ops
 
@@ -170,17 +185,23 @@ def main() -> int:
         print(json.dumps({"sass": counts}), flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    st = sweep.sweep_statics(icosphere(1.0, BEM_SUBDIV), dtype=torch.float32, device=dev)
-    points = {"surface": st.centers}
+    ico = sweep.sweep_statics(icosphere(1.0, BEM_SUBDIV), dtype=torch.float32, device=dev)
+    statics = {"ico": ico, "quads": sweep.sweep_statics(cube_sphere(1.0, QUAD_N),
+                                                        dtype=torch.float32, device=dev)}
+    for name in {s[1] for s in SHAPES if s[1].startswith("ico:")}:
+        n = int(name[4:])
+        statics[name] = type(ico)(*(t[:n].contiguous() for t in ico))
+    points = {}
     for name, (radius, shape) in (("field", (2.0, FIELD_SHAPE)), ("cavity", (0.5, CAVITY_SHAPE))):
         points[name] = torch.tensor(generate_sphere_eval_points(radius, *shape), dtype=torch.float32,
                                     device=dev)
 
     shapes = []
-    for variant, where, band in SHAPES:
+    for variant, surface, where, band in SHAPES:
         ks = (torch.linspace(*BEM_BAND, BEM_FREQS, dtype=torch.float32, device=dev) if band == "band"
               else torch.tensor(band, dtype=torch.float32, device=dev))
-        x = points[where]
+        st = statics[surface]
+        x = st.centers if where == "surface" else points[where]
         nx = st.normals if where == "surface" else None
 
         def call():
@@ -189,10 +210,10 @@ def main() -> int:
         stream_ms = time_ms(call)
         on_card = graph_ms(call)
         torch.cuda.empty_cache()
-        shapes.append(dict(variant=variant, shape=f"{x.shape[0]}x{st.qp.shape[0]}",
+        shapes.append(dict(variant=variant, surface=surface, shape=f"{x.shape[0]}x{st.qp.shape[0]}",
                            nf=ks.shape[0], k=[round(float(v), 4) for v in ks[:1]],
                            stream_ms=stream_ms, graph_ms=on_card))
-        print(f"{variant} {shapes[-1]['shape']} F={ks.shape[0]}: "
+        print(f"{variant} {surface} {shapes[-1]['shape']} F={ks.shape[0]}: "
               f"stream {stream_ms:.4f} ms, graph {on_card:.4f} ms", flush=True)
     print(json.dumps({"repo": repo, "gpu": gpu_line(), "device": torch.cuda.get_device_name(0),
                       "shapes": shapes}), flush=True)

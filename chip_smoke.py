@@ -79,6 +79,29 @@ walls, 2 sources) with four cuts: 8 log-spaced of its 100 frequencies over
 resolves), max_iter 100 for its 10000 (1000 iterations), one batch of 8
 (the automatic batch would pad the 8 frequencies to 64 lanes).
 
+Path 12 is slice 4c, the BEM leftovers (phase 19), complex64: (a) the
+all-quad cube sphere (cube_sphere(1.0, 29): 5046 bilinear quads, the 2 x 2
+tensor rule, nq = 4 with weights that vary with position), a rigid sphere
+under a +z plane wave through BemSolver with CBIE at ka = 1 and with
+Burton–Miller at ka = 2 (Jacobi-GMRES, tol 1e-5), then the field at path
+3's 8192 points; (b) the near-pair upgrade on path 3 (c)'s N=5120 icosphere
+(ka = 2, Burton–Miller); (c) BemConfig JSON files through build_problem and
+BemSolver: a uv_sphere of 36 x 72 and a closed cylinder of 72 x 34 (5040
+triangles each); (d) an NC.inp with node and element files written from the
+icosphere and parsed back. Path 13 is the rest of slice 6c, every FEM
+element type: (a) P1, P2 and P3 (to_p2, to_p3) of the FEM QA suite's ka = 1
+annulus (2400 / 9408 / 21,024 nodes) and spherical shell (1458 / 10,914 /
+36,050 nodes) in float64 under direct, gmres_jacobi and gmres_amg (left
+out where they do not fit: P_SKIP), and the Dirichlet plane-wave problems
+of tests/test_fem_extras.py on a unit square (n = 16) and cube (n = 6); (b)
+trilinear hexes of nearfield_stereo.json's room at its own resolution (36 x
+32 x 24 cells, 30,525 nodes), walls of admittance 0.1, a Gaussian source at
+its left speaker, 40 Hz, complex64, under gmres_jacobi and
+gmres_shifted_laplacian; (c) PML values on the tet room mesh (165,888
+tets, layers of 0.5 m on all six faces) and the absorbing strip of
+tests/test_fem_extras.py; (d) uniform_refine and adaptive_refine of the
+tet room mesh on the host.
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -252,7 +275,31 @@ Phases, each fatal on failure:
    converged frequency within 0.1 dB of a float64 scipy sparse direct solve
    of the same assembled system on the host; iterations, converged flags, ms
    per frequency, the batch size, peak memory, and the idle share of the
-   batch's first 30 Arnoldi steps under the profiler.
+   batch's first 30 Arnoldi steps under the profiler;
+19. paths 12-13, each BEM run counted (launch counts set to 0 just before,
+   read just after): (a) exactly one ``double_layer`` (CBIE) or
+   ``burton_miller`` launch and one ``kh_double`` (the field) per run, GMRES
+   converged, ||A p - b||/||b|| <= 1e-4 on the assembled matrix, surface and
+   field rel L2 to the Mie series < 0.1 (tests/test_bem.py's quad gate);
+   solve and field ms (medians of 3); each new shape (5046 x 5046, 8192 x
+   5046, and (c)'s 5040 x 5040) held against its twin (float32 <= 1e-5 per
+   plane, off the diagonal) and timed into the kernels line's
+   ``other_shapes``; (b) the number of near pairs, the upgrade's ms, GMRES
+   iterations and Mie rel L2 before and after, the upgrade itself launching
+   no kernel, and the float64 deltas on the card within 1e-9 of the CPU's;
+   (c) one ``double_layer`` launch each, converged, residual <= 1e-4, the uv
+   sphere's Mie < 0.1; (d) the parsed mesh equal to the written one. FEM:
+   (a) every solve converged, one solve per mesh and order (P_CPU; P3 at
+   one restart cycle of 60 steps on both sides, the CPU's whole P3 solves
+   taking 30-90 s) within 1e-9 of the CPU with equal iterations, the
+   solvers of one mesh and order within 1e-4 of each other's closed-form
+   rel_l2, P2 and P3 no worse than P1 (the shell strictly P3 < P2 < P1),
+   and on the plane-wave problems P2
+   < P1/5 and P3 < P2/3; (b) each converged with the SPL at the listening
+   position within 0.1 dB of a float64 scipy sparse direct solve; (c) float64
+   PML values on the card within 1e-9 of the CPU's, the strip's ripple <
+   0.12 and mean |u| within 0.1 of 1; (d) uniform refinement 8x the
+   elements, both refinements keeping the room's volume (1e-9).
 With ``--profile``, once every phase has passed, one more run of each
 path and of each FEM option (for path 5 a fit at maxiter 100) runs under
 torch.profiler and its
@@ -2334,6 +2381,32 @@ def fmm_matvec_record(label, op, x):
     return rec
 
 
+def _mie_surface(mesh, k, dev, terms=30, radius=1.0):
+    """Mie total pressure of the rigid unit sphere under a +z plane wave, at
+    ``radius`` and the element centers' polar angles, with ``terms`` terms."""
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.wave.analytical import sphere_scattering_3d
+
+    c = mesh.centers
+    theta = np.arccos(np.clip(c[:, 2] / np.linalg.norm(c, axis=1), -1, 1))
+    return sphere_scattering_3d(k, 1.0, terms, [radius], theta, dtype=torch.float64,
+                                device=dev).pressure.reshape(-1).cpu().numpy()
+
+
+def _rigid_rhs(mesh, incident, k, beta, where):
+    """The rigid right-hand side p_inc (- beta dp_inc/dn) at the centers."""
+    import torch
+
+    centers = torch.tensor(mesh.centers, **where)
+    b = incident.pressure(centers, k)
+    if beta != 0.0:
+        normals = torch.tensor(mesh.normals, **where)
+        b = b - beta * incident.normal_derivative(centers, normals, k)
+    return b
+
+
 def fmm_phase(ops, dev, counters, subdiv=FMM_SUBDIV, room=ROOMSIM_WIDE, room_solver="auto",
               qa_cases=FMM_QA_CASES, field_shape=FIELD_SHAPE):
     """Phase 15: the FMM on the card, (a)-(d) above. Returns ({variant:
@@ -2357,7 +2430,6 @@ def fmm_phase(ops, dev, counters, subdiv=FMM_SUBDIV, room=ROOMSIM_WIDE, room_sol
     from mathaudio_tpu_torch.common.config import RoomConfig
     from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
     from mathaudio_tpu_torch.solvers.preconditioners import ilu
-    from mathaudio_tpu_torch.wave.analytical import sphere_scattering_3d
     from mathaudio_tpu_torch.xtypes import full_f32_matmul
 
     t_phase = time.perf_counter()
@@ -2400,13 +2472,9 @@ def fmm_phase(ops, dev, counters, subdiv=FMM_SUBDIV, room=ROOMSIM_WIDE, room_sol
     mv_a = fmm_matvec_record(f"(a) N = {n} complex64 gather", op32, x.to(c64))
 
     inc = plane_wave((0.0, 0.0, 1.0))
-    centers = torch.tensor(mesh.centers, dtype=f64, device=dev)
-    normals = torch.tensor(mesh.normals, dtype=f64, device=dev)
-    rhs = inc.pressure(centers, k) - beta * inc.normal_derivative(centers, normals, k)
-    c = mesh.centers
-    theta = np.arccos(np.clip(c[:, 2] / np.linalg.norm(c, axis=1), -1, 1))
-    mie = sphere_scattering_3d(k, 1.0, max(60, int(2 * k) + 20), [float(np.linalg.norm(c, axis=1).mean())],
-                               theta, dtype=f64, device=dev).pressure.reshape(-1).cpu().numpy()
+    rhs = _rigid_rhs(mesh, inc, k, beta, {"dtype": f64, "device": dev})
+    mie = _mie_surface(mesh, k, dev, max(60, int(2 * k) + 20),
+                       float(np.linalg.norm(mesh.centers, axis=1).mean()))
     config = KrylovConfig(**FMM_GMRES)
     sol64 = gmres(op64g, rhs, config=config, preconditioner=pre64)
 
@@ -2632,7 +2700,6 @@ def mlfmm_phase(ops, dev, counters, subdiv=MLFMM_SUBDIV, k=MLFMM_K, dense_subdiv
     from mathaudio_tpu_torch.bem.mesh import icosphere
     from mathaudio_tpu_torch.bem.types import BoundaryCondition
     from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
-    from mathaudio_tpu_torch.wave.analytical import sphere_scattering_3d
     from mathaudio_tpu_torch.wave.analytical.solutions_3d import pulsating_sphere_3d
     from mathaudio_tpu_torch.xtypes import full_f32_matmul
 
@@ -2647,14 +2714,9 @@ def mlfmm_phase(ops, dev, counters, subdiv=MLFMM_SUBDIV, k=MLFMM_K, dense_subdiv
 
     def surface(mesh, beta):
         """(rhs in float64 on the card, Mie surface pressure) for ``mesh``."""
-        centers = torch.tensor(mesh.centers, dtype=f64, device=dev)
-        normals = torch.tensor(mesh.normals, dtype=f64, device=dev)
-        rhs = inc.pressure(centers, k) - beta * inc.normal_derivative(centers, normals, k)
-        c = mesh.centers
-        theta = np.arccos(np.clip(c[:, 2] / np.linalg.norm(c, axis=1), -1, 1))
-        mie = sphere_scattering_3d(k, 1.0, max(60, int(2 * k) + 20),
-                                   [float(np.linalg.norm(c, axis=1).mean())], theta, dtype=f64,
-                                   device=dev).pressure.reshape(-1).cpu().numpy()
+        rhs = _rigid_rhs(mesh, inc, k, beta, {"dtype": f64, "device": dev})
+        mie = _mie_surface(mesh, k, dev, max(60, int(2 * k) + 20),
+                           float(np.linalg.norm(mesh.centers, axis=1).mean()))
         return rhs, mie
 
     # (a) bench.py's mlfmm tier
@@ -3213,6 +3275,545 @@ def roomsim_fem_phase(dev, small=ROOMSIM_SMALL, wide=ROOMSIM_WIDE, wide_cuts=Non
     return runs
 
 
+# Phase 19: slices 4c and 6c's rest. Path 12 (BEM, complex64 on the card):
+# (a) the all-quad cube sphere (6 x 29^2 = 5046 bilinear quads, nq = 4 from
+# the 2 x 2 tensor rule, sized like path 3's 5120 triangles), a rigid sphere
+# under a +z plane wave through BemSolver: CBIE at ka = 1, Burton–Miller at
+# ka = 2 (Jacobi-GMRES, tol 1e-5), each gated against the Mie series as
+# tests/test_bem.py's quad case is (< 0.1), then the field at path 3's 8192
+# points; (b) the near-pair upgrade on path 3 (c)'s N = 5120 icosphere; (c)
+# BemConfig JSON files (uv_sphere 36 x 72 and a closed cylinder 72 x 34, 5040
+# triangles each) through build_problem and BemSolver; (d) an NC.inp with its
+# node and element files written from the icosphere and parsed back.
+QUAD_N = 29
+QUAD_CASES = ((1.0, False), (2.0, True))  # (ka, Burton–Miller)
+QUAD_MIE = 0.1  # tests/test_bem.py TestQuadElements.test_quad_bem_vs_mie
+NEAR_DELTA_TOL = 1e-9  # the float64 near-pair deltas, card vs CPU
+CONFIG_MESHES = ({"type": "uv_sphere", "radius": 1.0, "n_theta": 36, "n_phi": 72},
+                 {"type": "cylinder", "radius": 1.0, "height": 2.0, "n_circ": 72, "n_height": 34})
+# Path 13 (FEM element types): (a) P1, P2 and P3 (refinement.to_p2/to_p3) of
+# the QA FEM suite's ka = 1 annulus and spherical shell (apps/qa_suite_fem.py
+# main's sizes) in float64 on the card under direct, gmres_jacobi and
+# gmres_amg where each fits (P_SKIP), a pair per mesh and order also on the
+# CPU, and the Dirichlet plane-wave problems of tests/test_fem_extras.py at a
+# larger size; (b) the trilinear hex room at nearfield_stereo.json's own
+# resolution; (c) PML assembly and absorption; (d) h-refinement on the tet
+# room mesh.
+P_MESHES = (("annulus", "annular_mesh_triangles", (1.0, 3.0, 24, 96)),
+            ("shell", "spherical_shell_mesh_tetrahedra", (1.0, 2.5, 8, 2)))
+P_SOLVERS = ("direct", "gmres_jacobi", "gmres_amg")
+# (mesh, order) -> solver names left out: the dense LU of the 36,050-node P3
+# shell (21 GB), Jacobi-GMRES on the P3 annulus (4020 iterations without
+# reaching 1e-8 on the CPU), AMG on the P3 shell (1.7M nonzeros; its host
+# set-up and solve exceed minutes on the CPU)
+P_SKIP = {("annulus", "p3"): ("gmres_jacobi",), ("shell", "p3"): ("direct", "gmres_amg")}
+# (mesh, order) -> (solver, iteration cap) of its card-vs-CPU check: P1 and P2
+# solve to the end on both sides; P3 stops both at one restart cycle (60
+# steps), as the CPU's whole solve takes 30 s (annulus, AMG, 329 steps) and
+# 89 s (shell, Jacobi, 1063 steps) on 4 host cores
+P_CPU = {("annulus", "p1"): ("gmres_jacobi", None), ("annulus", "p2"): ("gmres_amg", None),
+         ("annulus", "p3"): ("gmres_amg", 60), ("shell", "p1"): ("gmres_amg", None),
+         ("shell", "p2"): ("gmres_jacobi", None), ("shell", "p3"): ("gmres_jacobi", 60)}
+P_CARD_CPU_TOL = 1e-9
+P_AGREE = 1e-4  # rel_l2 of one mesh and order under its different solvers
+PLANE_WAVE_MESHES = (("unit square", "unit_square_triangles", 16, (1, 2, 3, 4)),
+                     ("unit cube", "unit_cube_tetrahedra", 6, (1, 2, 3, 4, 5, 6)))
+HEX_F, HEX_BETA, HEX_SIGMA = 40.0, 0.1, 0.1  # Hz, wall admittance, source width (m)
+HEX_DB = 0.1
+HEX_SOLVERS = ("gmres_jacobi", "gmres_shifted_laplacian")
+PML_TOL = 1e-9
+
+
+def _residual(a, p, b):
+    import torch
+
+    return float(torch.linalg.vector_norm(a @ p - b) / torch.linalg.vector_norm(b))
+
+
+def _phase_launches(label, launches, wanted):
+    if launches != wanted:
+        raise AssertionError(f"{label}: launches {launches}, wanted exactly {wanted}")
+
+
+def bem_quads_phase(ops, dev, counters, quad_n=QUAD_N, near_subdiv=BEM_SUBDIV,
+                    config_meshes=CONFIG_MESHES, points=None):
+    """Phase 19, path 12 (see above): gates each solve (GMRES converged,
+    ||A p - b||/||b|| <= 1e-4 on the assembled matrix, Mie < QUAD_MIE on the
+    spheres), its exact launches, and holds every new kernel shape against
+    its twin (float32 <= 1e-5 per plane, off the diagonal) and times it.
+    Returns ({variant: [records]}, callables for the profiler)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.bem import assembly
+    from mathaudio_tpu_torch.bem import io as bem_io
+    from mathaudio_tpu_torch.bem.incident import plane_wave
+    from mathaudio_tpu_torch.bem.mesh import SurfaceMesh, cube_sphere
+    from mathaudio_tpu_torch.bem.solver import BemProblem, BemSolver
+    from mathaudio_tpu_torch.bem.types import PhysicsParams
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres
+    from mathaudio_tpu_torch.solvers.preconditioners.basic import jacobi_preconditioner
+    from mathaudio_tpu_torch.wave.analytical import sphere_scattering_3d
+
+    t_phase = time.perf_counter()
+    where = dict(dtype=torch.float32, device=dev)
+    pts = field_points() if points is None else points
+    twin = twin_pairwise(ops)
+    records, runs = {}, {}
+
+    def hold(variant, label, a, off_diagonal, launches):
+        r = bem_kernel_record(label, ops, twin, variant, a, off_diagonal)
+        r["launches"] = launches
+        records.setdefault(variant, []).append(r)
+
+    # (a) the cube sphere: CBIE at ka = 1, Burton-Miller at ka = 2, then the field
+    mesh = cube_sphere(1.0, quad_n)
+    n = mesh.num_elements
+    log(f"bem_quads (a) cube_sphere(1.0, {quad_n}): {n} quads, {mesh.nodes_per_element} nodes "
+        f"each, nq {mesh.quad_points()[1].shape[1]}, area {mesh.areas.sum():.6f} (4 pi "
+        f"{4 * np.pi:.6f})")
+    theta_pts = np.arccos(np.clip(pts[:, 2] / np.linalg.norm(pts, axis=1), -1, 1))
+    for ka, bm in QUAD_CASES:
+        prob = BemProblem(mesh=mesh, physics=PhysicsParams.from_wave_number(ka),
+                          incident=plane_wave((0.0, 0.0, 1.0)))
+        solver = BemSolver(gmres_config(bm), **where)
+        variant = "burton_miller" if bm else "double_layer"
+        label = f"(a) cube sphere ka {ka:g} {'Burton-Miller' if bm else 'CBIE'}"
+
+        def run(solver=solver, prob=prob):
+            sol = solver.solve(prob)
+            return sol, sol.evaluate_pressure_field(pts)
+
+        (sol, field), launches = counted(label, counters, run, dev, path="bem_quads")
+        _phase_launches(f"bem_quads {label}", launches, {variant: 1, "kh_double": 1})
+        k = prob.physics.wave_number
+        beta = solver.burton_miller_beta(prob) if bm else 0.0
+        a = (assembly.assemble_burton_miller(mesh, k, beta, **where) if bm
+             else assembly.assemble_collocation_matrix(mesh, k, **where))
+        res = _residual(a, sol.surface_pressure, _rigid_rhs(prob.mesh, prob.incident, k, beta, where))
+        del a
+        torch.cuda.empty_cache()
+        err = rel_l2(sol.surface_pressure, _mie_surface(mesh, k, dev))
+        mie_field = sphere_scattering_3d(k, 1.0, 30, [2.0], theta_pts, dtype=torch.float64,
+                                         device=dev).pressure.reshape(-1).cpu().numpy()
+        err_field = rel_l2(field.p_total, mie_field)
+        t_solve = median_ms(lambda: solver.solve(prob))
+        t_field = median_ms(lambda: sol.evaluate_pressure_field(pts))
+        log(f"bem_quads {label}: converged {sol.info['converged']}, iterations "
+            f"{sol.info['iterations']}, residual {res:.3e} (limit 1e-4), surface rel L2 to Mie "
+            f"{err:.4e} (limit {QUAD_MIE}), field at {len(pts)} points on r = 2 rel L2 to Mie "
+            f"{err_field:.4e} (limit {QUAD_MIE}); solve {t_solve:.2f} ms, field {t_field:.2f} ms "
+            f"(medians of 3)")
+        if not (sol.info["converged"] and res <= 1e-4 and err < QUAD_MIE and err_field < QUAD_MIE):
+            raise AssertionError(f"bem_quads {label}: {sol.info}, residual {res:.3e}, Mie {err:.3e}"
+                                 f", field {err_field:.3e}")
+        runs[f"bem_quads ka {ka:g}"] = run
+        centers, normals, qp, qw, _, _ = assembly._mesh_tensors(mesh, 3, torch.float32, dev)
+        ks = torch.tensor([k], **where)
+        hold(variant, f"f32 {n} x {n} F=1 (quads)", (centers, normals, qp, normals, qw, ks), True,
+             1)
+        if not bm:
+            x = torch.tensor(pts, **where)
+            hold("kh_double", f"f32 {len(pts)} x {n} F=1 (quads)", (x, None, qp, normals, qw, ks),
+                 False, 2)
+
+    # (b) the near-pair upgrade on path 3 (c)'s icosphere, Burton-Miller at ka = 2
+    prob = BemProblem.rigid_sphere(PATH3_RIGID_KA, subdivisions=near_subdiv)
+    ico = prob.mesh
+    k = prob.physics.wave_number
+    beta = BemSolver(gmres_config(True), **where).burton_miller_beta(prob)
+    t0 = time.perf_counter()
+    pi, pj = assembly._near_pairs(ico)
+    t_pairs = (time.perf_counter() - t0) * 1e3
+    b = _rigid_rhs(prob.mesh, prob.incident, k, beta, where)
+    mie = _mie_surface(ico, k, dev)
+    cfg = KrylovConfig(max_iterations=1000, tolerance=PATH3_GMRES_TOL, restart=50)
+
+    def solve(a):
+        sol = gmres(a, b, config=cfg, preconditioner=jacobi_preconditioner(torch.diagonal(a)))
+        if not bool(sol.converged):
+            raise AssertionError(f"bem_quads (b): GMRES did not converge ({sol.iterations})")
+        return sol.x, int(sol.iterations)
+
+    a = assembly.assemble_burton_miller(ico, k, beta, **where)
+    p0, it0 = solve(a)
+    a_up, launches = counted("(b) near-pair upgrade", counters,
+                             lambda: assembly.apply_near_pair_upgrade(a, ico, k, beta), dev,
+                             path="bem_quads")
+    _phase_launches("bem_quads (b) near-pair upgrade", launches, {})
+    t_up = median_ms(lambda: assembly.apply_near_pair_upgrade(a, ico, k, beta))
+    p1, it1 = solve(a_up)
+    res1 = _residual(a_up, p1, b)
+    del a, a_up
+    torch.cuda.empty_cache()
+    e0, e1 = rel_l2(p0, mie), rel_l2(p1, mie)
+    zeros = {w: torch.zeros((ico.num_elements,) * 2, dtype=torch.complex128, device=w)
+             for w in (dev, torch.device("cpu"))}
+    deltas = {w.type: assembly.apply_near_pair_upgrade(z, ico, k, beta) for w, z in zeros.items()}
+    d_cpu = deltas["cpu"]
+    d_err = float(torch.max(torch.abs(deltas[dev.type].cpu() - d_cpu)) / torch.max(torch.abs(d_cpu)))
+    del zeros, deltas, d_cpu
+    torch.cuda.empty_cache()
+    log(f"bem_quads (b) near-pair upgrade on icosphere N = {ico.num_elements}, ka "
+        f"{PATH3_RIGID_KA:g}, Burton-Miller: {len(pi)} near pairs ({len(pi) / ico.num_elements:.1f} "
+        f"a row; pair list {t_pairs:.1f} ms on the host), upgrade {t_up:.2f} ms on the card "
+        f"(median of 3, host pair list and points included); GMRES iterations {it0} -> {it1}, "
+        f"surface rel L2 to Mie {e0:.4e} -> {e1:.4e}, residual after {res1:.3e}; float64 deltas "
+        f"card vs CPU {d_err:.3e} of max (limit {NEAR_DELTA_TOL:g})")
+    if not (d_err <= NEAR_DELTA_TOL and res1 <= 1e-4 and e1 < QUAD_MIE):
+        raise AssertionError(f"bem_quads (b): deltas {d_err:.3e}, residual {res1:.3e}, Mie {e1:.3e}")
+
+    # (c) BemConfig JSON -> build_problem -> BemSolver (CBIE at ka = 1)
+    f_ka1 = C_SOUND / (2 * np.pi)
+    with tempfile.TemporaryDirectory() as tmp:
+        for spec in config_meshes:
+            path = os.path.join(tmp, f"{spec['type']}.json")
+            with open(path, "w") as fh:
+                json.dump({"frequency": f_ka1, "speed_of_sound": C_SOUND, "mesh": spec,
+                           "incident": {"type": "plane", "direction": [0.0, 0.0, 1.0]},
+                           "solver": {"method": "gmres"}}, fh)
+            t0 = time.perf_counter()
+            prob = bem_io.BemConfig.from_file(path).build_problem()
+            t_build = (time.perf_counter() - t0) * 1e3
+            solver = BemSolver(gmres_config(False), **where)
+            label = f"(c) BemConfig {spec['type']}"
+            sol, launches = counted(label, counters, lambda: solver.solve(prob), dev,
+                                    path="bem_quads")
+            _phase_launches(f"bem_quads {label}", launches, {"double_layer": 1})
+            m, k = prob.mesh, prob.physics.wave_number
+            a = assembly.assemble_collocation_matrix(m, k, **where)
+            res = _residual(a, sol.surface_pressure, _rigid_rhs(m, prob.incident, k, 0.0, where))
+            del a
+            torch.cuda.empty_cache()
+            mie_txt, ok = "", True
+            if spec["type"] == "uv_sphere":
+                err = rel_l2(sol.surface_pressure, _mie_surface(m, k, dev))
+                mie_txt, ok = f", surface rel L2 to Mie {err:.4e} (limit {QUAD_MIE})", err < QUAD_MIE
+            log(f"bem_quads {label}: {m.num_elements} triangles, config + mesh {t_build:.1f} ms, "
+                f"converged {sol.info['converged']}, iterations {sol.info['iterations']}, residual "
+                f"{res:.3e} (limit 1e-4){mie_txt}")
+            if not (sol.info["converged"] and res <= 1e-4 and ok):
+                raise AssertionError(f"bem_quads {label}: {sol.info}, residual {res:.3e}")
+            if spec["type"] == "uv_sphere":  # the cylinder's launch has the same shape
+                centers, normals, qp, qw, _, _ = assembly._mesh_tensors(m, 3, torch.float32, dev)
+                ks = torch.tensor([k], **where)
+                hold("double_layer", f"f32 {m.num_elements} x {m.num_elements} F=1 (BemConfig)",
+                     (centers, normals, qp, normals, qw, ks), True, len(config_meshes))
+
+        # (d) NC.inp with node and element files from the icosphere, parsed back
+        nc_nodes, nc_elements = ico.nodes, ico.elements
+        with open(os.path.join(tmp, "nodes.txt"), "w") as fh:
+            fh.write(f"{len(nc_nodes)}\n")
+            fh.writelines(f"{i} {float(x)!r} {float(y)!r} {float(z)!r}\n"
+                         for i, (x, y, z) in enumerate(nc_nodes))
+        with open(os.path.join(tmp, "elements.txt"), "w") as fh:
+            fh.write(f"{len(nc_elements)}\n")
+            fh.writelines(f"{i} {a} {b} {c}\n" for i, (a, b, c) in enumerate(nc_elements))
+        nc_text = "\n".join([
+            "Mesh2HRTF 1.0.0", "##", f"icosphere N = {len(nc_elements)}", "##",
+            "## Controlparameter I", "0 0 0 0 7 0", "##", "## Load Frequency Curve", "0 2",
+            "0.000000 0.000000e+00 0.0", f"0.000001 {f_ka1:.6e} 0.0", "##",
+            "## 1. Main Parameters I", f"2 {len(nc_nodes)} {len(nc_elements)} 0 0 2 1 0 0", "##",
+            "## 4. Main Parameters IV", f"{C_SOUND:g} {RHO:g} 1.0 0.0 0.0 0.0 0.0", "##",
+            "NODES", "nodes.txt", "##", "ELEMENTS", "elements.txt", "##", "BOUNDARY",
+            f"ELEM 0 TO {len(nc_elements) - 1} VELO 0.0 -1 0.0 -1", "RETU", "##", "PLANE WAVES",
+            "1 0.0 0.0 1.0 1.0 -1 0.0 -1", "##", "END", ""])
+        with open(os.path.join(tmp, "NC.inp"), "w") as fh:
+            fh.write(nc_text)
+        t0 = time.perf_counter()
+        nc = bem_io.parse_nc_input(os.path.join(tmp, "NC.inp"))
+        back = SurfaceMesh(bem_io.load_nc_nodes(os.path.join(nc.base_dir, nc.node_files[0])),
+                           bem_io.load_nc_elements(os.path.join(nc.base_dir, nc.element_files[0])))
+        t_nc = (time.perf_counter() - t0) * 1e3
+        same = (np.array_equal(back.nodes, ico.nodes) and np.array_equal(back.elements, ico.elements)
+                and nc.main_params_i.num_elements == ico.num_elements
+                and np.allclose(nc.frequencies(), [f_ka1], rtol=1e-6)
+                and len(nc.boundary_conditions) == 1 and len(nc.plane_waves) == 1)
+        log(f"bem_quads (d) NC.inp: {nc.main_params_i.num_nodes} nodes, "
+            f"{nc.main_params_i.num_elements} elements, frequencies {nc.frequencies().tolist()}, "
+            f"parsed back in {t_nc:.1f} ms, same mesh {same}")
+        if not same:
+            raise AssertionError("bem_quads (d): the NC.inp round trip changed the mesh")
+    log(f"bem_quads phase: {time.perf_counter() - t_phase:.1f} s")
+    return records, runs
+
+
+def _qa_fem_problem(kind, mesh, k, r_outer, dtype, device):
+    """The QA FEM suite's rigid-scatterer problem on ``mesh`` (its case
+    functions' boundary conditions) and its closed form at the nodes inside
+    0.8 r_outer: (problem, selected nodes, exact total field, incident axis)."""
+    import numpy as np
+    import torch
+
+    from mathaudio_tpu_torch.apps import qa_suite_fem as qa
+    from mathaudio_tpu_torch.fem import HelmholtzProblem, NeumannBC, RobinBC
+
+    ax, dim = (0, 2) if kind == "annulus" else (2, 3)
+
+    def dpinc_dn(x):
+        n_hat = -x / torch.linalg.norm(x, dim=-1, keepdim=True)
+        return -(1j * k * n_hat[..., ax]) * torch.exp(1j * k * x[..., ax])
+
+    prob = HelmholtzProblem(mesh, k, neumann=[NeumannBC(1, dpinc_dn)],
+                            robin=[RobinBC.absorbing_curved(2, k, r_outer, dim=dim)],
+                            dtype=dtype, device=device)
+    nodes = mesh.nodes
+    r = np.linalg.norm(nodes, axis=1)
+    sel = r < 0.8 * r_outer
+    if kind == "annulus":
+        exact = qa._cylinder_exact(k, 1.0, 40, r[sel], np.arctan2(nodes[sel, 1], nodes[sel, 0]),
+                                   device="cpu")
+    else:
+        exact = qa._sphere_exact(k, 1.0, 40, r[sel], np.arccos(np.clip(nodes[sel, 2] / r[sel], -1, 1)),
+                                 device="cpu")
+    return prob, sel, exact.numpy(), ax
+
+
+def fem_elements_phase(dev, p_meshes=P_MESHES, plane_wave_meshes=PLANE_WAVE_MESHES, hex_room=None,
+                       pml_box=None):
+    """Phase 19, path 13 (see above). No hand-written kernel lies on these
+    paths (the general FEM problem runs ELL/CSR torch ops). Returns callables
+    for the profiler."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from mathaudio_tpu_torch.apps import roomsim_fem
+    from mathaudio_tpu_torch.common.config import RoomConfig
+    from mathaudio_tpu_torch.fem import DirichletBC, HelmholtzProblem, RobinBC, solve_helmholtz
+    from mathaudio_tpu_torch.fem import mesh as fem_mesh
+    from mathaudio_tpu_torch.fem.pml import PmlRegion, assemble_pml_values, pml_box_regions
+    from mathaudio_tpu_torch.fem.problem import l2_error_at_nodes
+    from mathaudio_tpu_torch.fem.refinement import (
+        adaptive_refine,
+        residual_indicator,
+        to_p2,
+        to_p3,
+        uniform_refine,
+    )
+    from mathaudio_tpu_torch.solvers.direct import lu_solve
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig
+    from mathaudio_tpu_torch.xtypes import pressure_to_spl
+
+    t_phase = time.perf_counter()
+    f64, cpu = torch.float64, torch.device("cpu")
+    orders = (("p1", lambda m: m), ("p2", to_p2), ("p3", to_p3))
+    runs = {}
+
+    # (a) P2 and P3 of the QA suite's annulus and shell (ka = 1)
+    qa_cfg = KrylovConfig(max_iterations=4000, tolerance=1e-8, restart=60)  # the QA suite's float64
+    for kind, gen, args in p_meshes:
+        base = getattr(fem_mesh, gen)(*args)
+        r_outer = args[1]
+        errs = {}
+        for order, up in orders:
+            m = up(base)
+            prob, sel, exact, ax = _qa_fem_problem(kind, m, 1.0, r_outer, f64, dev)
+            per = {}
+            for name in P_SOLVERS:
+                if name in P_SKIP.get((kind, order), ()):
+                    continue
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                u, info = solve_helmholtz(prob, name, qa_cfg)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                u = u.cpu().numpy()
+                err = float(np.linalg.norm(u[sel] + np.exp(1j * m.nodes[sel, ax]) - exact)
+                            / np.linalg.norm(exact))
+                per[name] = (u, err, info)
+                log(f"fem_elements (a) {kind} {order} ({m.element_type}, {m.num_nodes} nodes) "
+                    f"{name}: rel_l2 {err:.6e}, iterations {info['iterations']}, converged "
+                    f"{info['converged']}, {ms:.1f} ms (float64, set-up included)")
+                if not info["converged"]:
+                    raise AssertionError(f"fem_elements (a) {kind} {order} {name}: {info}")
+            if (kind, order) in P_CPU:
+                name, cap = P_CPU[(kind, order)]
+                cfg = qa_cfg if cap is None else qa_cfg._replace(max_iterations=cap)
+                prob_cpu = _qa_fem_problem(kind, m, 1.0, r_outer, f64, cpu)[0]
+                u_cpu, info_cpu = solve_helmholtz(prob_cpu, name, cfg)
+                if cap is None:
+                    u_card, _, info_card = per[name]
+                else:
+                    u_card, info_card = solve_helmholtz(prob, name, cfg)
+                    u_card = u_card.cpu().numpy()
+                diff = float(np.max(np.abs(u_card - u_cpu.numpy())) / np.max(np.abs(u_cpu.numpy())))
+                log(f"fem_elements (a) {kind} {order} {name}"
+                    f"{'' if cap is None else f' capped at {cap} steps'}: card vs CPU {diff:.3e} "
+                    f"of max|u| (limit {P_CARD_CPU_TOL:g}), iterations "
+                    f"{info_card['iterations']} / {info_cpu['iterations']}")
+                if not (diff <= P_CARD_CPU_TOL and info_card["iterations"] == info_cpu["iterations"]):
+                    raise AssertionError(f"fem_elements (a) {kind} {order}: card vs CPU {diff:.3e}")
+            vals = [e for _, e, _ in per.values()]
+            if max(vals) - min(vals) > P_AGREE:
+                raise AssertionError(f"fem_elements (a) {kind} {order}: solvers disagree {vals}")
+            errs[order] = float(np.mean(vals))
+        log(f"fem_elements (a) {kind}: closed-form rel_l2 P1 {errs['p1']:.6e}, P2 {errs['p2']:.6e},"
+            f" P3 {errs['p3']:.6e}")
+        if not (errs["p2"] <= errs["p1"] and errs["p3"] <= errs["p1"]):
+            raise AssertionError(f"fem_elements (a) {kind}: P2/P3 error above P1's: {errs}")
+        if kind == "shell" and not errs["p3"] < errs["p2"] < errs["p1"]:
+            raise AssertionError(f"fem_elements (a) shell: not P3 < P2 < P1: {errs}")
+
+    # the Dirichlet plane-wave problems of tests/test_fem_extras.py, larger
+    for label, gen, n, tags in plane_wave_meshes:
+        base = getattr(fem_mesh, gen)(n)
+        kd = torch.tensor([0.6, 0.8] if base.dim == 2 else [0.48, 0.6, 0.64], dtype=f64,
+                          device=dev) * 2.0
+
+        def exact(x, kd=kd):
+            return torch.exp(1j * (x @ kd.to(x.dtype)))
+
+        errs = {}
+        for order, up in orders:
+            m = up(base)
+            prob = HelmholtzProblem(m, 2.0, dirichlet=[DirichletBC(t, exact) for t in tags],
+                                    dtype=f64, device=dev)
+            u, _ = solve_helmholtz(prob, "direct")
+            errs[order] = float(l2_error_at_nodes(m, u, exact))
+        log(f"fem_elements (a) plane wave on the {label} n={n} (direct, float64): nodal rel L2 "
+            f"P1 {errs['p1']:.4e}, P2 {errs['p2']:.4e}, P3 {errs['p3']:.4e} (P2 < P1/5 and P3 < "
+            f"P2/3 wanted, as tests/test_fem_extras.py)")
+        if not (errs["p2"] < errs["p1"] / 5.0 and errs["p3"] < errs["p2"] / 3.0):
+            raise AssertionError(f"fem_elements (a) plane wave {label}: {errs}")
+
+    # (b) the hex room at nearfield_stereo.json's resolution
+    cfg = RoomConfig.from_file(str(ROOMSIM_WIDE))
+    sim = cfg.to_simulation()
+    w, d, h = sim.geometry.dimensions()
+    dims = hex_room or roomsim_fem._mesh_dims(w, d, h, cfg.solver.mesh_resolution, multiple=4)
+    t0 = time.perf_counter()
+    hexes = fem_mesh.box_mesh_hexahedra(0, w, 0, d, 0, h, *dims)
+    t_mesh = time.perf_counter() - t0
+    k = 2.0 * np.pi * HEX_F / C_SOUND
+    x0 = np.asarray(sim.sources[0].position.to_array(), float)
+    lp = np.asarray(sim.listening_positions[0].to_array(), float)
+    listen = int(np.argmin(np.linalg.norm(hexes.nodes - lp, axis=1)))
+
+    def hex_problem(dtype, device):
+        def source(x):
+            r2 = torch.sum((x - torch.as_tensor(x0, dtype=x.dtype, device=x.device)) ** 2, dim=-1)
+            return torch.exp(-r2 / (2 * HEX_SIGMA**2)).to(torch.complex128 if x.dtype == f64
+                                                          else torch.complex64)
+
+        return HelmholtzProblem(hexes, k, source_fn=source,
+                                robin=[RobinBC.admittance(t, k, HEX_BETA) for t in WALLS],
+                                dtype=dtype, device=device)
+
+    t0 = time.perf_counter()
+    p64 = hex_problem(f64, cpu)
+    asm = p64.assembler
+    a = sp.csr_matrix((p64.vals.numpy(), asm.csr.indices, asm.csr.indptr), shape=asm.csr.shape)
+    # the sparsity is symmetric: minimum degree on A^T + A halves SuperLU's default time here
+    x_direct = spla.splu(a.tocsc(), permc_spec="MMD_AT_PLUS_A").solve(p64.rhs.numpy())
+    t_direct = time.perf_counter() - t0
+    spl_direct = float(pressure_to_spl(abs(x_direct[listen])))
+    del p64, a
+    t0 = time.perf_counter()
+    p32 = hex_problem(torch.float32, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    log(f"fem_elements (b) hex room {dims[0]} x {dims[1]} x {dims[2]}: {hexes.num_nodes} nodes, "
+        f"{hexes.num_elements} hexes, mesh {t_mesh:.2f} s, complex64 problem on the card "
+        f"{t_build:.2f} s, {p32.assembler.csr.nnz} nonzeros (ELL width {p32.assembler.ell_width}); "
+        f"{HEX_F:g} Hz, walls of admittance {HEX_BETA:g}, a Gaussian source (sigma {HEX_SIGMA:g} m) "
+        f"at {x0.tolist()}; float64 sparse direct on the host {t_direct:.1f} s (set-up "
+        f"included), SPL {spl_direct:.4f} dB at node {listen}")
+    hex_cfg = KrylovConfig(max_iterations=4000, tolerance=1e-5, restart=60)
+    for name in HEX_SOLVERS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        u, info = solve_helmholtz(p32, name, hex_cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        spl = float(pressure_to_spl(abs(complex(u[listen].item()))))
+        log(f"fem_elements (b) hex room {name}: iterations {info['iterations']}, converged "
+            f"{info['converged']}, {ms:.1f} ms (set-up included), peak memory {peak:.2f} GiB, SPL "
+            f"{spl:.4f} dB vs direct {spl_direct:.4f} (diff {abs(spl - spl_direct):.4f}, limit "
+            f"{HEX_DB})")
+        if not (info["converged"] and abs(spl - spl_direct) <= HEX_DB):
+            raise AssertionError(f"fem_elements (b) hex room {name}: {info}, SPL {spl} vs "
+                                 f"{spl_direct}")
+        runs[f"fem hex room {name}"] = lambda name=name: solve_helmholtz(p32, name, hex_cfg)
+
+    # (c) PML: a tet box with layers on all faces, card vs CPU; then absorption
+    box_dims = pml_box or roomsim_fem._mesh_dims(w, d, h, cfg.solver.mesh_resolution, multiple=4)
+    tets = fem_mesh.box_mesh_tetrahedra(0, w, 0, d, 0, h, *box_dims)
+    regions = pml_box_regions((0, w, 0, d, 0, h), 0.5, sigma_max=4.0 * k)
+    got = {}
+    for where in (dev, cpu):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, kv, mv = assemble_pml_values(tets, regions, k, dtype=f64, device=where)
+        torch.cuda.synchronize()
+        got[where.type] = (kv.cpu(), mv.cpu(), (time.perf_counter() - t0) * 1e3)
+    errs = [float(torch.max(torch.abs(g - c)) / torch.max(torch.abs(c)))
+            for g, c in zip(got[dev.type][:2], got["cpu"][:2])]
+    t_card = {dt: median_ms(lambda dt=dt: assemble_pml_values(tets, regions, k, dtype=dt,
+                                                              device=dev))
+              for dt in (f64, torch.float32)}
+    log(f"fem_elements (c) PML on the tet box ({tets.num_nodes} nodes, {tets.num_elements} tets, "
+        f"6 layers of 0.5 m): float64 K / M card vs CPU {errs[0]:.3e} / {errs[1]:.3e} (limit "
+        f"{PML_TOL:g}); float64 first call {got[dev.type][2]:.1f} ms on the card, "
+        f"{got['cpu'][2]:.1f} ms on the CPU; on the card medians of 3 after it: float64 "
+        f"{t_card[f64]:.1f} ms, float32 {t_card[torch.float32]:.1f} ms")
+    if not max(errs) <= PML_TOL:
+        raise AssertionError(f"fem_elements (c) PML card vs CPU: {errs}")
+    kw = 6.0  # tests/test_fem_extras.py TestPml.test_pml_absorbs_outgoing_wave, on the card
+    strip = fem_mesh.rectangular_mesh_triangles(0.0, 3.0, 0.0, 0.1, 120, 2)
+    csr, kv, mv = assemble_pml_values(strip, [PmlRegion(0, +1, 2.0, 1.0, sigma_max=4.0 * kw)], kw,
+                                      dtype=f64, device=dev)
+    nn = strip.num_nodes
+    rows = torch.as_tensor(np.repeat(np.arange(nn), np.diff(csr.indptr)), device=dev)
+    cols = torch.as_tensor(csr.indices.astype(np.int64), device=dev)
+    a = torch.zeros((nn, nn), dtype=torch.complex128, device=dev).index_put_(
+        (rows, cols), kv - kw**2 * mv, accumulate=True)
+    left = torch.as_tensor(np.abs(strip.nodes[:, 0]) < 1e-12, device=dev)
+    fixed = left | torch.as_tensor(np.abs(strip.nodes[:, 0] - 3.0) < 1e-12, device=dev)
+    g = left.to(torch.complex128)
+    bvec = torch.where(fixed, g, -(a[:, fixed] @ g[fixed]))
+    a[fixed, :] = 0.0
+    a[:, fixed] = 0.0
+    a[fixed, fixed] = 1.0
+    u = lu_solve(a, bvec).cpu().numpy()
+    inner = (strip.nodes[:, 0] > 0.2) & (strip.nodes[:, 0] < 1.8)
+    mags = np.abs(u[inner])
+    ripple = (mags.max() - mags.min()) / mags.mean()
+    log(f"fem_elements (c) PML strip k = {kw:g} on the card: ripple {ripple:.4f} (limit 0.12), "
+        f"mean |u| {mags.mean():.4f} (1 +- 0.1)")
+    if not (ripple < 0.12 and abs(mags.mean() - 1.0) <= 0.1):
+        raise AssertionError(f"fem_elements (c) PML strip: ripple {ripple}, mean {mags.mean()}")
+
+    # (d) h-refinement on the tet room mesh (host)
+    vol = w * d * h
+    t0 = time.perf_counter()
+    fine = uniform_refine(tets)
+    t_uni = time.perf_counter() - t0
+    r = np.linalg.norm(tets.nodes - x0, axis=1)
+    u_free = np.exp(1j * k * r) / (4 * np.pi * np.maximum(r, 0.05))
+    t0 = time.perf_counter()
+    eta = residual_indicator(tets, u_free, k)
+    adapted = adaptive_refine(tets, eta, theta=0.5)
+    t_ad = time.perf_counter() - t0
+    v_err = max(abs(fine.element_measures().sum() - vol), abs(adapted.element_measures().sum()
+                                                               - vol)) / vol
+    log(f"fem_elements (d) refinement of the tet room ({tets.num_elements} tets): "
+        f"uniform_refine {t_uni:.2f} s -> {fine.num_elements} tets, {fine.num_nodes} nodes; "
+        f"residual_indicator + adaptive_refine (theta 0.5) {t_ad:.2f} s -> "
+        f"{adapted.num_elements} tets; volume off {v_err:.2e} (limit 1e-9)")
+    if not (fine.num_elements == 8 * tets.num_elements and v_err <= 1e-9
+            and adapted.num_elements > tets.num_elements):
+        raise AssertionError("fem_elements (d): refinement lost volume or elements")
+    log(f"fem_elements phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     import argparse
 
@@ -3401,6 +4002,16 @@ def main() -> int:
 
     # 18. slice 6c: the FEM room simulator
     fem_app_runs = roomsim_fem_phase(dev)
+
+    # 19. slices 4c and 6c's rest: quadrilateral BEM, the near-pair upgrade,
+    # the BEM inputs; every FEM element type with PML and refinement
+    quad_records, quad_runs = bem_quads_phase(bem_assembly, dev, (dia, bem_assembly))
+    app_runs.update(quad_runs)
+    for variant, recs in quad_records.items():
+        for r in recs:
+            bem_records[variant].setdefault("other_shapes", []).append(r)
+            bem_records[variant]["launches"] += r["launches"]
+    fem_app_runs.update(fem_elements_phase(dev))
 
     # profiles last, once every kernel has run
     if profile:

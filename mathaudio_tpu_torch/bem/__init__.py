@@ -18,7 +18,12 @@ from mathaudio_tpu_torch.bem.types import (  # noqa: F401
     SolverMethod,
     BemSolverConfig,
 )
-from mathaudio_tpu_torch.bem.mesh import SurfaceMesh, icosphere  # noqa: F401
+from mathaudio_tpu_torch.bem.mesh import (  # noqa: F401
+    SurfaceMesh,
+    icosphere,
+    uv_sphere,
+    cylinder_mesh,
+)
 from mathaudio_tpu_torch.bem.incident import IncidentField, plane_wave, point_source  # noqa: F401
 from mathaudio_tpu_torch.bem.assembly import (  # noqa: F401
     assemble_collocation_matrix,

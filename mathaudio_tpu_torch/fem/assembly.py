@@ -1,4 +1,5 @@
-"""Batched P1 FEM assembly (counterpart of mathaudio_tpu/fem/assembly.py).
+"""Batched FEM assembly for every element type of fem/basis.py (counterpart
+of mathaudio_tpu/fem/assembly.py).
 
 The JAX package vmaps a per-element kernel and scatter-adds into a fixed
 CSR sparsity. Here the element kernel is one batched ``einsum`` over all
@@ -18,8 +19,13 @@ import numpy as np
 import torch
 
 from mathaudio_tpu_torch.fem.basis import element_tables, shape_functions
-from mathaudio_tpu_torch.fem.mesh import TET, TRIANGLE, Mesh
-from mathaudio_tpu_torch.fem.quadrature import segment_rule, triangle_rule
+from mathaudio_tpu_torch.fem.mesh import HEX, QUAD, TET, TRIANGLE, Mesh
+from mathaudio_tpu_torch.fem.quadrature import (
+    quad_rule,
+    segment_rule,
+    triangle_rule,
+    triangle_rule_order,
+)
 from mathaudio_tpu_torch.solvers.operators import EllOperator
 from mathaudio_tpu_torch.solvers.sparse import CsrMatrix
 from mathaudio_tpu_torch.xtypes import complex_dtype_for, default_float, resolve_device
@@ -122,6 +128,35 @@ def assemble_lumped_mass(mesh: Mesh, dtype=None, quad_order: int = 2, *, device=
         0, rows, m_vals)
 
 
+# volume element type -> boundary face type; the higher-order volumes carry
+# higher-order faces, whose node orders refinement.to_p2/to_p3 fix
+_FACE_TYPE = {
+    TRIANGLE: "segment",
+    QUAD: "segment",
+    TET: TRIANGLE,
+    HEX: QUAD,
+    "triangle6": "segment3",
+    "triangle10": "segment4",
+    "tet10": "triangle6",
+    "tet20": "triangle10",
+}
+
+# 1D Lagrange node layouts on [0, 1], in the order of boundary_faces' columns
+_SEGMENT_NODES = {
+    "segment": np.array([0.0, 1.0]),
+    "segment3": np.array([0.0, 1.0, 0.5]),
+    "segment4": np.array([0.0, 1.0, 1.0 / 3.0, 2.0 / 3.0]),
+}
+
+# surface face type -> its quadrature rule
+_FACE_RULES = {
+    "triangle6": lambda order: triangle_rule_order(4),
+    "triangle10": lambda order: triangle_rule_order(6),
+    QUAD: lambda order: quad_rule(2),
+    TRIANGLE: triangle_rule,
+}
+
+
 def _lagrange_1d(nodes: np.ndarray, x: np.ndarray):
     """phi (nq, nv) and dphi (nq, nv) of the 1D Lagrange basis on `nodes`."""
     nv = len(nodes)
@@ -145,18 +180,18 @@ def _lagrange_1d(nodes: np.ndarray, x: np.ndarray):
 
 
 def _face_table(volume_type: str, order: int = 2):
-    """(points, weights, phi, grad) on the boundary faces of a P1 volume:
-    triangles for tets, segments for triangles."""
-    if volume_type == TRIANGLE:
-        nodes = np.array([0.0, 1.0])
+    """(points, weights, phi, grad) on the boundary faces of a volume of
+    ``volume_type``: Lagrange segments of 2-4 nodes (Gauss rule of as many
+    points, exact for their mass integrand), or triangles and quads."""
+    ft = _FACE_TYPE[volume_type]
+    if ft in _SEGMENT_NODES:
+        nodes = _SEGMENT_NODES[ft]
         x, w = segment_rule(len(nodes))
         phi, dphi = _lagrange_1d(nodes, x)
         return x[:, None], w, phi, dphi[:, :, None]
-    if volume_type == TET:
-        pts, w = triangle_rule(order)
-        phi, grad = shape_functions(TRIANGLE, pts)
-        return pts, w, phi, grad
-    raise ValueError(volume_type)
+    pts, w = _FACE_RULES[ft](order)
+    phi, grad = shape_functions(ft, pts)
+    return pts, w, phi, grad
 
 
 def _face_mass_kernel(coords, phi, grad, weights):

@@ -1,7 +1,6 @@
-"""Host-side mesh container, the triangle and tetrahedron generators and
-the icosphere surface (counterpart of mathaudio_tpu/fem/mesh.py; pure
-numpy). The quadrilateral and hexahedral generators come with the rest of
-slice 6c.
+"""Host-side mesh container, the triangle, quadrilateral, tetrahedron and
+hexahedron generators and the icosphere surface (counterpart of
+mathaudio_tpu/fem/mesh.py; pure numpy).
 
 Boundary detection counts faces once (lexsort, no hash maps). Rectangle
 tags: 1=x_min, 2=x_max, 3=y_min, 4=y_max; the box adds 5=z_min, 6=z_max;
@@ -16,11 +15,22 @@ from typing import Callable, Optional
 import numpy as np
 
 TRIANGLE = "triangle"
+QUAD = "quad"
 TET = "tet"
+HEX = "hex"
 
 _FACES = {
     TRIANGLE: [[0, 1], [1, 2], [2, 0]],
+    QUAD: [[0, 1], [1, 2], [2, 3], [3, 0]],
     TET: [[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]],
+    HEX: [
+        [0, 1, 2, 3],
+        [4, 5, 6, 7],
+        [0, 1, 5, 4],
+        [2, 3, 7, 6],
+        [0, 3, 7, 4],
+        [1, 2, 6, 5],
+    ],
 }
 
 
@@ -56,8 +66,7 @@ class Mesh:
         first[1:] = (key_sorted[1:] != key_sorted[:-1]).any(axis=1)
         group = np.cumsum(first) - 1
         counts = np.bincount(group)
-        boundary_groups = np.where(counts == 1)[0]
-        sel = np.isin(group, boundary_groups)
+        sel = counts[group] == 1
         self.boundary_faces = faces[order][sel]
         self.boundary_markers = np.zeros(len(self.boundary_faces), np.int64)
         return self
@@ -80,6 +89,42 @@ class Mesh:
         if tags is not None:
             faces = faces[np.isin(self.boundary_markers, np.asarray(list(tags)))]
         return np.unique(faces)
+
+    def element_centroids(self) -> np.ndarray:
+        return self.nodes[self.elements].mean(axis=1)
+
+    def element_measures(self) -> np.ndarray:
+        """Area (2D) or volume (3D) of every element: simplices in closed
+        form, a quad as its two triangles, a hex by the 2-point tensor rule
+        on its trilinear map."""
+        pts = self.nodes[self.elements]
+        if self.element_type == TRIANGLE:
+            v1 = pts[:, 1] - pts[:, 0]
+            v2 = pts[:, 2] - pts[:, 0]
+            return 0.5 * np.abs(v1[:, 0] * v2[:, 1] - v1[:, 1] * v2[:, 0])
+        if self.element_type == TET:
+            v1 = pts[:, 1] - pts[:, 0]
+            v2 = pts[:, 2] - pts[:, 0]
+            v3 = pts[:, 3] - pts[:, 0]
+            return np.abs(np.einsum("ei,ei->e", np.cross(v1, v2), v3)) / 6.0
+        if self.element_type == QUAD:
+            a = 0.5 * np.abs(_cross2(pts[:, 1] - pts[:, 0], pts[:, 2] - pts[:, 0]))
+            b = 0.5 * np.abs(_cross2(pts[:, 2] - pts[:, 0], pts[:, 3] - pts[:, 0]))
+            return a + b
+        if self.element_type == HEX:
+            from mathaudio_tpu_torch.fem.basis import shape_functions
+            from mathaudio_tpu_torch.fem.quadrature import hex_rule
+
+            pts_q, w = hex_rule(2)
+            _, grad = shape_functions(HEX, pts_q)  # (nq, 8, 3)
+            jac = np.einsum("evd,qvk->eqdk", pts, grad)
+            return np.einsum("q,eq->e", w, np.abs(np.linalg.det(jac)))
+        raise ValueError(self.element_type)
+
+
+def _cross2(u, v):
+    """z component of the cross product of (E, 2) vectors."""
+    return u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]
 
 
 def _tag_rectangle(mesh: Mesh, x_min, x_max, y_min, y_max, tol=1e-10):
@@ -106,6 +151,20 @@ def rectangular_mesh_triangles(x_min, x_max, y_min, y_max, nx, ny) -> Mesh:
     t2 = np.stack([n00, n11, n01], axis=1)
     elements = np.concatenate([t1, t2], axis=0)
     mesh = Mesh(2, nodes, elements.astype(np.int64), TRIANGLE).detect_boundaries()
+    return _tag_rectangle(mesh, x_min, x_max, y_min, y_max)
+
+
+def rectangular_mesh_quads(x_min, x_max, y_min, y_max, nx, ny) -> Mesh:
+    """One bilinear quad per cell, counter-clockwise from its (x_min, y_min)
+    corner; lexicographic nodes (x fastest), tags 1..4."""
+    xs = np.linspace(x_min, x_max, nx + 1)
+    ys = np.linspace(y_min, y_max, ny + 1)
+    xx, yy = np.meshgrid(xs, ys, indexing="xy")
+    nodes = np.stack([xx.reshape(-1), yy.reshape(-1)], axis=1)
+    i, j = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+    n00 = (j * (nx + 1) + i).reshape(-1)
+    elements = np.stack([n00, n00 + 1, n00 + nx + 2, n00 + nx + 1], axis=1)
+    mesh = Mesh(2, nodes, elements.astype(np.int64), QUAD).detect_boundaries()
     return _tag_rectangle(mesh, x_min, x_max, y_min, y_max)
 
 
@@ -162,6 +221,19 @@ def box_mesh_tetrahedra(x_min, x_max, y_min, y_max, z_min, z_max, nx, ny, nz) ->
         [np.stack([c[a], c[b], c[d], c[e]], axis=1) for a, b, d, e in tets], axis=0
     )
     mesh = Mesh(3, nodes, elements.astype(np.int64), TET).detect_boundaries()
+    return _tag_box(mesh, x_min, x_max, y_min, y_max, z_min, z_max)
+
+
+def box_mesh_hexahedra(x_min, x_max, y_min, y_max, z_min, z_max, nx, ny, nz) -> Mesh:
+    """One trilinear hex per cube (bottom face counter-clockwise, then the
+    top face); tags 1..6 as the tet box."""
+    nodes = _box_nodes(x_min, x_max, y_min, y_max, z_min, z_max, nx, ny, nz)
+    c = _box_corner_ids(nx, ny, nz)
+    elements = np.stack(
+        [c["n000"], c["n100"], c["n110"], c["n010"], c["n001"], c["n101"], c["n111"], c["n011"]],
+        axis=1,
+    )
+    mesh = Mesh(3, nodes, elements.astype(np.int64), HEX).detect_boundaries()
     return _tag_box(mesh, x_min, x_max, y_min, y_max, z_min, z_max)
 
 
@@ -244,8 +316,16 @@ def unit_square_triangles(n: int) -> Mesh:
     return rectangular_mesh_triangles(0.0, 1.0, 0.0, 1.0, n, n)
 
 
+def unit_square_quads(n: int) -> Mesh:
+    return rectangular_mesh_quads(0.0, 1.0, 0.0, 1.0, n, n)
+
+
 def unit_cube_tetrahedra(n: int) -> Mesh:
     return box_mesh_tetrahedra(0.0, 1.0, 0.0, 1.0, 0.0, 1.0, n, n, n)
+
+
+def unit_cube_hexahedra(n: int) -> Mesh:
+    return box_mesh_hexahedra(0.0, 1.0, 0.0, 1.0, 0.0, 1.0, n, n, n)
 
 
 def _icosphere_surface(subdivisions: int):

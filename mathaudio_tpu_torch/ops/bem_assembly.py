@@ -30,9 +30,10 @@ device raises. On CUDA a build or launch failure raises; nothing falls
 back to the twins. The i == j entries are singular and are
 overwritten by the assembly: compare the two forms off the diagonal.
 
-``pairwise_double_layer_xla``, ``pairwise_bm_xla`` and ``pairwise_kh_xla``
-are the twins under the reference's names and scalar-``k`` signatures:
-plain torch on whatever device holds the inputs, never the kernel.
+``pairwise_double_layer_xla``, ``pairwise_bm_xla``, ``pairwise_mixed_xla``
+and ``pairwise_kh_xla`` are the twins under the reference's names and
+scalar-``k`` signatures: plain torch on whatever device holds the inputs,
+never the kernel.
 """
 
 from __future__ import annotations
@@ -420,6 +421,14 @@ def pairwise_bm_xla(x, nx, yq, ny, w, k):
     signature: (D_k, D_0, T_k, T_0), each (Ni, Nj)."""
     ks, scalar = _wavenumbers(k, x)
     return _single(pairwise_bm_ref(x, nx, yq, ny, w, ks), scalar)
+
+
+def pairwise_mixed_xla(x, nx, yq, ny, w, k, with_bm: bool):
+    """The plain torch form under the reference's name and scalar-``k``
+    signature: (D_k, D_0, S_k, T_k, T_0, K'_k), each (Ni, Nj); the last
+    three are None without ``with_bm``."""
+    ks, scalar = _wavenumbers(k, x)
+    return _single(pairwise_mixed_ref(x, nx, yq, ny, w, ks, with_bm), scalar)
 
 
 def pairwise_kh_xla(x, yq, ny, w, k):

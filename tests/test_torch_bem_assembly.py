@@ -86,9 +86,15 @@ def test_orient_outward_flips_inward_elements():
 
 
 def test_quadrilaterals_are_refused():
+    """Since slice 4c a quadrilateral is a SurfaceMesh element, as in the
+    reference; the subdivided rule of the near-pair upgrade still refuses it."""
     nodes = np.array([[0.0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]])
-    with pytest.raises(ValueError, match="quadrilateral"):
-        SurfaceMesh(nodes, np.array([[0, 1, 2, 3]]))
+    quad = SurfaceMesh(nodes, np.array([[0, 1, 2, 3]]))
+    assert quad.nodes_per_element == 4
+    np.testing.assert_allclose(quad.areas, [1.0], rtol=1e-15)
+    np.testing.assert_allclose(quad.normals, [[0.0, 0.0, 1.0]], atol=1e-15)
+    with pytest.raises(ValueError, match="triangles"):
+        quad.quad_points_refined()
 
 
 @pytest.mark.parametrize("kind", ["plane", "point"])

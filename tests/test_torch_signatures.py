@@ -134,6 +134,7 @@ FUNCTIONS = [
     ("ops.bem_assembly", "pairwise_double_layer_xla"),
     ("ops.bem_assembly", "pairwise_bm_xla"),
     ("ops.bem_assembly", "pairwise_kh_xla"),
+    ("ops.bem_assembly", "pairwise_mixed_xla"),
 ]
 
 
@@ -755,22 +756,29 @@ def test_slice_5b_returned_solve_takes_operators(factory):
 # F4: the reference packages' re-exports resolve on the port's packages.
 # --------------------------------------------------------------------------
 
-PACKAGES = ("", ".models", ".fem", ".solvers", ".solvers.preconditioners", ".ops")
+# Every reference subpackage that has a port package (hull/, parallel/ and
+# testfunctions/ have none yet: slices 7b and 8).
+PACKAGES = ("", ".models", ".fem", ".solvers", ".solvers.preconditioners", ".ops", ".bem",
+            ".dsp", ".wave", ".wave.analytical", ".wave.special", ".common", ".optim", ".apps",
+            ".utils", ".native")
 # Re-exported names whose modules (or parts of them) are later slices.
-UNPORTED_EXPORTS = {
-    ".fem": {name: "slice 6c" for name in (
-        "rectangular_mesh_quads", "box_mesh_hexahedra", "unit_square_quads",
-        "unit_cube_hexahedra")},
+UNPORTED_EXPORTS = {}
+# Re-exported names that have no counterpart on purpose, with the reason.
+FMM_PLANES = ("re/im planes for a TPU transport without complex numbers: the port's complex "
+              "tensors live on the card, and fmm_chip_solve_cm_fn takes operators")
+NO_COUNTERPART_EXPORTS = {
+    ".bem": {name: FMM_PLANES for name in (
+        "fmm_chip_matvec_fn", "fmm_chip_solve_fn", "join_planes", "split_planes")},
 }
 
 
 def _reexports(package: str):
     """(name, defining module relative to the package root) of every name
-    the reference package's ``__init__`` imports from its modules."""
+    the reference package's ``__init__`` imports from its own modules."""
     mod = importlib.import_module("mathaudio_tpu" + package)
     out = []
     for node in ast.parse(inspect.getsource(mod)).body:
-        if isinstance(node, ast.ImportFrom):
+        if isinstance(node, ast.ImportFrom) and node.module.startswith("mathaudio_tpu"):
             for alias in node.names:
                 out.append((alias.asname or alias.name, node.module[len("mathaudio_tpu"):]))
     return out
@@ -781,11 +789,15 @@ EXPORTS = [(package, name, source) for package in PACKAGES
 
 
 def test_every_reference_package_reexports():
-    assert len(EXPORTS) >= 70
+    assert len(EXPORTS) >= 240
     assert ("", "SPEED_OF_SOUND", ".xtypes") in EXPORTS
     assert (".models", "RoomSweepModel", ".models.helmholtz_room") in EXPORTS
-    for package, names in UNPORTED_EXPORTS.items():
-        assert set(names) <= {n for p, n, _ in EXPORTS if p == package}, package
+    assert (".bem", "uv_sphere", ".bem.mesh") in EXPORTS
+    assert (".bem", "cylinder_mesh", ".bem.mesh") in EXPORTS
+    assert (".fem", "box_mesh_hexahedra", ".fem.mesh") in EXPORTS
+    for table in (UNPORTED_EXPORTS, NO_COUNTERPART_EXPORTS):
+        for package, names in table.items():
+            assert set(names) <= {n for p, n, _ in EXPORTS if p == package}, package
 
 
 @pytest.mark.parametrize("package,name,source", EXPORTS,
@@ -795,6 +807,10 @@ def test_reference_reexport_resolves_on_the_port(package, name, source):
     if name in UNPORTED_EXPORTS.get(package, {}):
         assert UNPORTED_EXPORTS[package][name].startswith("slice ")
         assert not hasattr(port_pkg, name), f"{name} is ported: re-export it, drop its row"
+        return
+    if name in NO_COUNTERPART_EXPORTS.get(package, {}):
+        assert NO_COUNTERPART_EXPORTS[package][name]
+        assert not hasattr(port_pkg, name), f"{name} has a counterpart: drop its row"
         return
     got = getattr(port_pkg, name)
     if source == package:  # a submodule (``from mathaudio_tpu.solvers import blas``)
@@ -812,14 +828,16 @@ def test_bench_imports_resolve_on_the_port():
 
 
 @pytest.mark.parametrize("name", ["pairwise_double_layer_xla", "pairwise_bm_xla",
-                                  "pairwise_kh_xla"])
+                                  "pairwise_kh_xla", "pairwise_mixed_xla"])
 def test_xla_forms_match_the_reference_at_a_scalar_k(bem_inputs, name):
     c, n, qp, qw, pts = bem_inputs
     x = pts if name == "pairwise_kh_xla" else c
-    args = (x, qp, n, qw) if name != "pairwise_bm_xla" else (x, n, qp, n, qw)
+    args = (x, qp, n, qw) if name in ("pairwise_double_layer_xla", "pairwise_kh_xla") else (
+        x, n, qp, n, qw)
+    extra = (True,) if name == "pairwise_mixed_xla" else ()
     before = dict(ops.LAUNCHES)
-    got = getattr(ops, name)(*(torch.tensor(a) for a in args), 1.4)
-    want = getattr(jax_ops, name)(*(jnp.asarray(a) for a in args), 1.4)
+    got = getattr(ops, name)(*(torch.tensor(a) for a in args), 1.4, *extra)
+    want = getattr(jax_ops, name)(*(jnp.asarray(a) for a in args), 1.4, *extra)
     assert ops.LAUNCHES == before
     assert len(got) == len(want)
     for g, r in zip(got, want):
@@ -873,7 +891,7 @@ SLICE_6_MODULES = {
 # What slice 6 ports of modules that other slices share: the reference's
 # load_native (a build that may fall back to Python) is the port's
 # native.load (which raises instead); the quadrilateral and hexahedral
-# generators and their bases are the rest of slice 6c.
+# generators and their bases are held with slices 4c and 6c's rest below.
 SLICE_6_PARTIAL = {
     "native": ("pmis_coarsen", "greedy_coloring", "ilu0_factor_inplace"),
     "fem.mesh": ("annular_mesh_triangles", "spherical_shell_mesh_tetrahedra",
@@ -918,3 +936,126 @@ def test_slice_6_signature_is_the_reference(where, qualname):
         assert _same_default(p.default, r.default), (p.name, p.default, r.default)
     assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None
                for p in extras), extras
+
+
+# --------------------------------------------------------------------------
+# Slices 4c and 6c's rest: the quadrilateral BEM meshes and generators, the
+# near-pair upgrade, the NC.inp parser and BemConfig; the quadrature rules,
+# the bases of every element type, the quad and hex generators, PML and
+# refinement. The extras are keyword-only ``dtype`` and ``device``, each
+# defaulting to None.
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.bem.assembly as jax_bem_assembly  # noqa: E402
+import mathaudio_tpu.bem.io as jax_bem_io  # noqa: E402
+import mathaudio_tpu.bem.mesh as jax_bem_mesh  # noqa: E402
+import mathaudio_tpu.fem.basis as jax_basis  # noqa: E402
+import mathaudio_tpu.fem.pml as jax_pml  # noqa: E402
+import mathaudio_tpu.fem.quadrature as jax_quadrature  # noqa: E402
+import mathaudio_tpu.fem.refinement as jax_refinement  # noqa: E402
+import mathaudio_tpu_torch.bem.assembly as port_bem_assembly  # noqa: E402
+import mathaudio_tpu_torch.bem.io as port_bem_io  # noqa: E402
+import mathaudio_tpu_torch.bem.mesh as port_bem_mesh  # noqa: E402
+import mathaudio_tpu_torch.fem.basis as port_basis  # noqa: E402
+import mathaudio_tpu_torch.fem.pml as port_pml  # noqa: E402
+import mathaudio_tpu_torch.fem.quadrature as port_quadrature  # noqa: E402
+import mathaudio_tpu_torch.fem.refinement as port_refinement  # noqa: E402
+
+SLICE_4C_6C_MODULES = {
+    "bem.mesh": (port_bem_mesh, jax_bem_mesh),
+    "bem.assembly": (port_bem_assembly, jax_bem_assembly),
+    "bem.io": (port_bem_io, jax_bem_io),
+    "fem.quadrature": (port_quadrature, jax_quadrature),
+    "fem.basis": (port_basis, jax_basis),
+    "fem.mesh": (mesh, jax_mesh),
+    "fem.refinement": (port_refinement, jax_refinement),
+    "fem.pml": (port_pml, jax_pml),
+    "ops.bem_assembly": (ops, jax_ops),
+}
+# What this slice ports of modules that earlier slices share.
+SLICE_4C_6C_PARTIAL = {
+    "bem.assembly": ("apply_near_pair_upgrade", "_near_pairs", "_near_delta"),
+    "fem.mesh": ("rectangular_mesh_quads", "box_mesh_hexahedra", "unit_square_quads",
+                 "unit_cube_hexahedra", "Mesh.element_measures", "Mesh.element_centroids"),
+    "ops.bem_assembly": ("pairwise_mixed_xla",),
+}
+SLICE_4C_6C_FUNCTIONS = [
+    (where, q) for where, (_, ref) in SLICE_4C_6C_MODULES.items()
+    for q in SLICE_4C_6C_PARTIAL.get(where, _public_callables(ref))
+]
+
+
+def test_slice_4c_6c_covers_its_modules():
+    assert len(SLICE_4C_6C_FUNCTIONS) >= 50
+    for where, qualname in (("bem.mesh", "cube_sphere"), ("bem.mesh", "SurfaceMesh.quad_points_refined"),
+                            ("bem.io", "BemConfig.from_file"), ("bem.io", "parse_nc_input_string"),
+                            ("fem.quadrature", "hex_rule"), ("fem.basis", "element_tables"),
+                            ("fem.refinement", "to_p3"), ("fem.pml", "assemble_pml_values")):
+        assert (where, qualname) in SLICE_4C_6C_FUNCTIONS
+    for where, (port_mod, ref_mod) in SLICE_4C_6C_MODULES.items():
+        names = SLICE_4C_6C_PARTIAL.get(where, _public_callables(ref_mod))
+        assert all(hasattr(port_mod, q.split(".")[0]) for q in names)
+
+
+@pytest.mark.parametrize("where,qualname", SLICE_4C_6C_FUNCTIONS,
+                         ids=[f"{w}:{q}" for w, q in SLICE_4C_6C_FUNCTIONS])
+def test_slice_4c_6c_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE_4C_6C_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    ref_names = {r.name for r in ref}
+    extras = [p for p in port if p.name in ("dtype", "device") and p.name not in ref_names]
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None
+               for p in extras), extras
+
+
+# Public names of the reference's bem/ and fem/ modules with no counterpart
+# on purpose, and why.
+PYTREE = "JAX pytree registration: the port's operators are plain objects"
+NO_COUNTERPART = {
+    ("bem.fmm", f"{cls}.{m}"): PYTREE
+    for cls in ("SlfmmOperator", "MlfmmOperator", "MlfmmTreeOperator",
+                "ClusterBlockPreconditioner")
+    for m in ("tree_flatten", "tree_unflatten")
+}
+NO_COUNTERPART.update({("bem.fmm_chip", name): FMM_PLANES for name in (
+    "Planes", "split_planes", "join_planes", "fmm_chip_matvec_fn", "fmm_chip_solve_fn",
+    "build_on_host")})
+NO_COUNTERPART[("fem.dia", "dia_matvec_pallas")] = (
+    "the Pallas kernel itself: the port's counterpart is the hand-written CUDA kernel "
+    "kernels/dia_stencil.cu behind fem/dia.py's dia_stencil")
+
+
+def _reference_bem_fem():
+    """(module path, qualified name) of every public function and class of
+    the reference's bem/ and fem/ modules, with their methods."""
+    import pkgutil
+
+    out = []
+    for package in ("bem", "fem"):
+        ref_pkg = importlib.import_module(f"mathaudio_tpu.{package}")
+        for info in pkgutil.iter_modules(ref_pkg.__path__):
+            ref_mod = importlib.import_module(f"mathaudio_tpu.{package}.{info.name}")
+            out += [(f"{package}.{info.name}", q) for q in _public_callables(ref_mod)]
+    return out
+
+
+def test_every_reference_bem_and_fem_callable_resolves_on_the_port():
+    names = _reference_bem_fem()
+    assert len(names) >= 230 and ("bem.io", "BemConfig.build_problem") in names
+    assert set(NO_COUNTERPART) <= set(names)
+    missing = []
+    for where, qualname in names:
+        port_mod = importlib.import_module(f"mathaudio_tpu_torch.{where}")
+        try:
+            _resolve(port_mod, qualname)
+        except AttributeError:
+            missing.append((where, qualname))
+        else:
+            assert (where, qualname) not in NO_COUNTERPART, f"{where}:{qualname} is ported"
+    assert sorted(missing) == sorted(NO_COUNTERPART), sorted(set(missing) ^ set(NO_COUNTERPART))
