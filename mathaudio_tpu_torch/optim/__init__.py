@@ -6,7 +6,7 @@ crossover, Latin-hypercube init, penalty constraints, JADE-style
 adaptation, optional local polish, per-evaluation recording.
 
 Port of mathaudio_tpu/optim (DE, the recorder and the PEQ fit; the
-test-function suite stays in the JAX package). The population is a
+test-function suite is mathaudio_tpu_torch.testfunctions). The population is a
 float64 tensor on the device and objective evaluation is vmapped with
 ``torch.func.vmap`` (the reference crate uses rayon, parallel_eval.rs:32).
 ``jit_loop=True`` keeps the JAX package's stopping rule without

@@ -47,7 +47,10 @@ def test_port_files_found():
                    "common/output.py", "utils/__init__.py", "utils/profiling.py", "bem/testing.py",
                    "apps/roomsim_bem.py", "apps/qa_suite_bem.py", "bem/fmm.py", "bem/octree.py",
                    "solvers/operators.py", "solvers/sparse.py", "solvers/preconditioners/ilu.py",
-                   "native/__init__.py", "bem/fmm_chip.py"):
+                   "native/__init__.py", "bem/fmm_chip.py", "testfunctions/__init__.py",
+                   "testfunctions/functions.py", "testfunctions/registry.py", "hull/__init__.py",
+                   "hull/quickhull.py", "hull/export.py", "hull/testdata.py", "apps/run_de.py",
+                   "apps/benchmark_convergence.py", "apps/plot_de.py", "apps/plot_functions.py"):
         assert f"mathaudio_tpu_torch/{module}" in names
 
 
@@ -71,7 +74,10 @@ def test_import_leaves_jax_unloaded():
         "mathaudio_tpu_torch.bem.octree, mathaudio_tpu_torch.bem.fmm_chip, mathaudio_tpu_torch.native, "
         "mathaudio_tpu_torch.solvers.preconditioners.ilu, mathaudio_tpu_torch.fem, "
         "mathaudio_tpu_torch.models, mathaudio_tpu_torch.ops, mathaudio_tpu_torch.solvers, "
-        "mathaudio_tpu_torch.models.helmholtz_room, mathaudio_tpu_torch.fem.multigrid; "
+        "mathaudio_tpu_torch.models.helmholtz_room, mathaudio_tpu_torch.fem.multigrid, "
+        "mathaudio_tpu_torch.testfunctions, mathaudio_tpu_torch.hull, "
+        "mathaudio_tpu_torch.apps.run_de, mathaudio_tpu_torch.apps.benchmark_convergence, "
+        "mathaudio_tpu_torch.apps.plot_de, mathaudio_tpu_torch.apps.plot_functions; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -152,6 +158,13 @@ def test_entry_points_refuse_to_drift_to_cpu(tmp_path):
                  lambda: sphere_case(1.0, 0, str(tmp_path), 0),
                  lambda: sphere_scattering_3d(1.0, 1.0, 10, [1.0], [0.0, 1.0]),
                  lambda: spherical_jn_all(3, [0.5]), lambda: log_space(20.0, 200.0, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    from mathaudio_tpu_torch.apps import benchmark_convergence, plot_functions, run_de
+
+    for call in (lambda: run_de.main(["sphere", "--maxiter", "1"]),
+                 lambda: benchmark_convergence.main(["-f", "booth_2d", "-o", str(tmp_path)]),
+                 lambda: plot_functions.main(["booth", "-o", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     meas = tmp_path / "speaker.csv"

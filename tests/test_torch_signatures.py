@@ -756,11 +756,11 @@ def test_slice_5b_returned_solve_takes_operators(factory):
 # F4: the reference packages' re-exports resolve on the port's packages.
 # --------------------------------------------------------------------------
 
-# Every reference subpackage that has a port package (hull/, parallel/ and
-# testfunctions/ have none yet: slices 7b and 8).
+# Every reference subpackage that has a port package (parallel/ has none
+# yet: slice 8).
 PACKAGES = ("", ".models", ".fem", ".solvers", ".solvers.preconditioners", ".ops", ".bem",
             ".dsp", ".wave", ".wave.analytical", ".wave.special", ".common", ".optim", ".apps",
-            ".utils", ".native")
+            ".utils", ".native", ".testfunctions", ".hull")
 # Re-exported names whose modules (or parts of them) are later slices.
 UNPORTED_EXPORTS = {}
 # Re-exported names that have no counterpart on purpose, with the reason.
@@ -1059,3 +1059,74 @@ def test_every_reference_bem_and_fem_callable_resolves_on_the_port():
         else:
             assert (where, qualname) not in NO_COUNTERPART, f"{where}:{qualname} is ported"
     assert sorted(missing) == sorted(NO_COUNTERPART), sorted(set(missing) ^ set(NO_COUNTERPART))
+
+
+# --------------------------------------------------------------------------
+# Slice 7b: the test-function registry, the convex hull and the four DE
+# apps. Every public function and class of these modules, with its methods,
+# takes the reference's parameters; the one extra is a keyword-only
+# ``device`` defaulting to None (the GPU).
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.apps.benchmark_convergence as jax_benchmark_convergence  # noqa: E402
+import mathaudio_tpu.apps.plot_de as jax_plot_de  # noqa: E402
+import mathaudio_tpu.apps.plot_functions as jax_plot_functions  # noqa: E402
+import mathaudio_tpu.apps.run_de as jax_run_de  # noqa: E402
+import mathaudio_tpu.hull.export as jax_hull_export  # noqa: E402
+import mathaudio_tpu.hull.quickhull as jax_quickhull  # noqa: E402
+import mathaudio_tpu.hull.testdata as jax_hull_testdata  # noqa: E402
+import mathaudio_tpu.testfunctions.functions as jax_tf_functions  # noqa: E402
+import mathaudio_tpu.testfunctions.registry as jax_tf_registry  # noqa: E402
+import mathaudio_tpu_torch.apps.benchmark_convergence as port_benchmark_convergence  # noqa: E402
+import mathaudio_tpu_torch.apps.plot_de as port_plot_de  # noqa: E402
+import mathaudio_tpu_torch.apps.plot_functions as port_plot_functions  # noqa: E402
+import mathaudio_tpu_torch.apps.run_de as port_run_de  # noqa: E402
+import mathaudio_tpu_torch.hull.export as port_hull_export  # noqa: E402
+import mathaudio_tpu_torch.hull.quickhull as port_quickhull  # noqa: E402
+import mathaudio_tpu_torch.hull.testdata as port_hull_testdata  # noqa: E402
+import mathaudio_tpu_torch.testfunctions.functions as port_tf_functions  # noqa: E402
+import mathaudio_tpu_torch.testfunctions.registry as port_tf_registry  # noqa: E402
+
+SLICE_7B_MODULES = {
+    "testfunctions.functions": (port_tf_functions, jax_tf_functions),
+    "testfunctions.registry": (port_tf_registry, jax_tf_registry),
+    "hull.quickhull": (port_quickhull, jax_quickhull),
+    "hull.export": (port_hull_export, jax_hull_export),
+    "hull.testdata": (port_hull_testdata, jax_hull_testdata),
+    "apps.run_de": (port_run_de, jax_run_de),
+    "apps.benchmark_convergence": (port_benchmark_convergence, jax_benchmark_convergence),
+    "apps.plot_de": (port_plot_de, jax_plot_de),
+    "apps.plot_functions": (port_plot_functions, jax_plot_functions),
+}
+SLICE_7B_FUNCTIONS = [(where, q) for where, (_, ref) in SLICE_7B_MODULES.items()
+                      for q in _public_callables(ref)]
+
+
+def test_slice_7b_covers_its_modules():
+    assert len(SLICE_7B_FUNCTIONS) >= 130
+    for where, qualname in (("testfunctions.functions", "lampinen_simplified"),
+                            ("testfunctions.registry", "get_function_metadata"),
+                            ("hull.quickhull", "ConvexHull3D.surface_area"),
+                            ("hull.export", "hull_to_html"), ("hull.testdata", "icosahedron_points"),
+                            ("apps.run_de", "main"), ("apps.benchmark_convergence", "run_benchmark"),
+                            ("apps.benchmark_convergence", "BenchmarkResult.line"),
+                            ("apps.plot_de", "plot_html"), ("apps.plot_functions", "surface_html")):
+        assert (where, qualname) in SLICE_7B_FUNCTIONS
+    for where, (port_mod, ref_mod) in SLICE_7B_MODULES.items():
+        assert _public_callables(port_mod) == _public_callables(ref_mod), where
+
+
+@pytest.mark.parametrize("where,qualname", SLICE_7B_FUNCTIONS,
+                         ids=[f"{w}:{q}" for w, q in SLICE_7B_FUNCTIONS])
+def test_slice_7b_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE_7B_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    extras = [p for p in port if p.name == "device" and p.name not in {r.name for r in ref}]
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None
+               for p in extras), extras
