@@ -113,6 +113,26 @@ at 10 dimensions for 400 generations; benchmark_convergence -f _10d
 plot_functions all --resolution 80 --metadata, then plot_de over the
 benchmark's traces; and the convex hull on the host, as in the reference.
 
+Path 15 is slice 8 (phase 21), the sharded routes of parallel/ on
+torch.distributed: one NCCL rank per card (torch.cuda.device_count()
+ranks, spawned by parallel/launch.py; a world of one on one card), each
+rank on its own card: (a) NodeMajorRoomSweep.sharded_sweep_fn at path 1's
+shape (4096 wavenumbers split by frequency lanes, each rank's band in
+chunks of at most 2048 with path 1's per-chunk knobs); (b)
+BemSolver(device_mesh) on path 3 (c)'s sphere (N=5120, nq=4, complex64):
+Burton–Miller at ka 2 and CBIE at ka 1, each rank assembling its own row
+block; (c) build_sharded_system + sharded_gmres_fn (halo ELL, device
+Schwarz overlap 1, GMRES and the Ghysels variant) on a FEM Helmholtz
+system, P1 box n=15 (4096 nodes), complex128; (d) the cluster-sharded
+SLFMM at phase 15 (a)'s shape (N=5120, k = 8); (e) the sharded MLFMM tree
+at phase 16 (a)'s shape (N=20480, k = 16), both complex64 with the cluster
+block preconditioner; (f) shard_frequency_sweep with shard_room_params on
+the dry run's room (unit cube n=5, 8 wavenumbers for each rank),
+shard_population_eval on 1000 individuals of 10-d rastrigin (float64), then
+the port's dry run (parallel/dryrun.py) at n = the world size.
+``--only parallel`` runs the builds and phase 21 alone (a run over four
+cards).
+
 Phases, each fatal on failure:
 1. build the hand-written kernels (kernels/dia_stencil.cu and
    kernels/bem_pairwise.cu, one nvcc each, started together);
@@ -326,7 +346,26 @@ Phases, each fatal on failure:
    one trace per CSV; (e) the hulls of sphere_points(500),
    random_points(500) and fibonacci_sphere_points(180): volume and area
    within 1e-9 (relative) of scipy.spatial.ConvexHull, the same vertices,
-   the OBJ export read back to the same faces; the phase prints its seconds.
+   the OBJ export read back to the same faces; the phase prints its seconds;
+21. path 15, every rank gating its own part: (a) the sharded sweep's DIA
+   launches counted (every mode), 4096/4096 lanes converged, each rank's
+   lanes within 1e-6 of max|p| of the unsharded sweep of its chunk on its
+   card with equal iterations; (b) each solve converged with exactly its
+   kernel launched on every rank, ||A p - b|| / ||b|| <= 1e-4 on the
+   assembled matrix, within 1e-4 (relative) of the unsharded GMRES solve,
+   iterations within 2, ``sharded_over`` the world size; (c) within 1e-8 of
+   max|x| of scipy's sparse direct solve; (d), (e) the sharded matvec within
+   1e-5 (relative) of the unsharded gather-form one, converged, iterations
+   within 2 of the unsharded GMRES, Mie within phase 15's 1e-3 of the
+   float64 solve's; (f) the room sweep within 1e-4 of max|p| of the
+   unsharded one with equal iterations, the energies within 1e-12 of
+   max(1, |f|); the dry run's gates. Per path the sharded wall over the
+   world and the unsharded wall on one card (medians of 3 after a warm run)
+   and the NCCL kernels' share of a profiled sharded run's device time; the
+   sweep's DoF-solves/s both ways. The DIA and BEM shapes the ranks launched
+   that no phase timed are held against their twins and timed here; their
+   launches join the kernels line (the DIA ones as the "parallel" run under
+   ``launches_by_option``, the BEM row blocks under ``other_shapes``).
 With ``--profile``, once every phase has passed, one more run of each
 path and of each FEM option (for path 5 a fit at maxiter 100) runs under
 torch.profiler and its
@@ -4103,6 +4142,519 @@ def de_apps_phase(dev, points=DE_POINTS, de_filter=DE_FILTER, resolution=PLOT_RE
     return {f"de {cfg.name} (recorded, maxiter {DE_PROFILE_MAXITER})": profile_config}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21 (path 15): slice 8, the multi-GPU parallel/ package. One NCCL rank
+# per card (torch.cuda.device_count() ranks), spawned once by
+# parallel.launch; every rank runs every path on its own card and returns its
+# launch counts, gates, walls and log lines to this process, which prints
+# them and times the kernel shapes the ranks launched that no phase timed.
+
+PAR_SWEEP_TOL = 1e-6  # (a): each rank's lanes vs the unsharded sweep of its chunk
+# (a): one card's sweep of the whole band vs the ranks' lanes, and its
+# iteration mean: every rank builds its own tables, and the CUDA assembly's
+# index_add_ rounds in no fixed order, so other ranks' lanes may differ in
+# the last bits of their operators
+PAR_CROSS_TOL, PAR_CROSS_ITS = 1e-4, 0.01
+PAR_BEM_CASES = (("burton_miller", 2.0, True), ("double_layer", 1.0, False))  # (b): ka, BM
+PAR_BEM_TOL, PAR_ITER_TOL, PAR_RESIDUAL = 1e-4, 2, 1e-4  # (b): vs unsharded; ||Ap - b||/||b||
+PAR_FEM_N, PAR_FEM_K, PAR_FEM_TOL = 15, 3.0, 1e-8  # (c): P1 box, 4096 nodes; vs direct
+PAR_FEM_GMRES = dict(max_iterations=500, tolerance=1e-12, restart=50)
+PAR_FMM_MATVEC_TOL = 1e-5  # (d), (e): sharded vs unsharded gather-form matvec
+PAR_ROOM_TOL = 1e-4  # (f): the ELL room sweep, sharded vs unsharded (complex64)
+PAR_DE_POP, PAR_DE_DIM = 1000, 10
+PAR_TIMEOUT = 120  # seconds a collective may wait on the slowest rank
+PAR_JOIN = 480  # seconds the ranks may take in all
+PAR_ROOM_N = 5  # (f): the dry run's unit cube
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _par_wall_ms(fn, dev, sharded=True):
+    """Median wall ms of 3 synchronised ``fn()`` after a warm run; sharded:
+    the ranks start each run together (a barrier) and the slowest rank's
+    median is every rank's."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    times = []
+    for _ in range(3):
+        if sharded:
+            dist.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t = torch.tensor([statistics.median(times)], device=dev)
+    if sharded:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
+def _collective_share(fn, dev):
+    """(NCCL kernels' device ms, all device ms, host ms inside the
+    collective calls) of one ``fn()`` under torch.profiler, after a
+    discarded warm-up step. A profile that recorded no device activity (a
+    sub-millisecond step can come back empty) is taken again, up to three
+    times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(3):
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                    schedule=schedule) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        spans = [(e.time_range.end - e.time_range.start, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+        if spans:
+            break
+    else:
+        raise AssertionError("the profiler recorded no device activity in three profiles")
+    host = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == DeviceType.CPU and e.name.startswith("nccl:")]
+    return (sum(us for us, name in spans if "nccl" in name.lower()) / 1e3,
+            sum(us for us, _ in spans) / 1e3, sum(host) / 1e3)
+
+
+def _collective_us(dev, group, n):
+    """Wall microseconds of one all_reduce of a complex scalar and of one
+    all_gather of ``n`` complex64 per rank: 100 synchronised calls each."""
+    import torch
+
+    from mathaudio_tpu_torch.parallel.mesh import all_gather_tiled, all_reduce_sum
+
+    out = {}
+    for label, fn, x in (("all_reduce", all_reduce_sum,
+                          torch.ones((), dtype=torch.complex64, device=dev)),
+                         ("all_gather", all_gather_tiled,
+                          torch.ones(n, dtype=torch.complex64, device=dev))):
+        fn(x, group)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn(x, group)
+        _sync(dev)
+        out[label] = (time.perf_counter() - t0) * 1e4
+    return out
+
+
+def parallel_rank(rank, world):
+    """One NCCL rank of phase 21 on its card (``cuda:rank``): paths (a)-(f),
+    each gated here; returns its launches, walls, collective shares and log
+    lines."""
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.linalg
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from mathaudio_tpu_torch.bem import fmm
+    from mathaudio_tpu_torch.bem.assembly import assemble_burton_miller, assemble_collocation_matrix
+    from mathaudio_tpu_torch.bem.incident import plane_wave
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.bem.solver import BemProblem, BemSolver
+    from mathaudio_tpu_torch.bem.types import BemSolverConfig, SolverMethod
+    from mathaudio_tpu_torch.fem import dia
+    from mathaudio_tpu_torch.fem.assembly import HelmholtzAssembler
+    from mathaudio_tpu_torch.fem.mesh import unit_cube_tetrahedra
+    from mathaudio_tpu_torch.fem.multigrid import GeometricMultigrid, box_hierarchy
+    from mathaudio_tpu_torch.models.helmholtz_room import RoomSweepModel, sweep_pressure
+    from mathaudio_tpu_torch.models.room_sweep_nm import NodeMajorRoomSweep
+    from mathaudio_tpu_torch.ops import bem_assembly
+    from mathaudio_tpu_torch.parallel import (
+        dryrun,
+        shard_frequency_sweep,
+        shard_population_eval,
+        shard_room_params,
+        sweep_mesh,
+    )
+    from mathaudio_tpu_torch.parallel.fmm_spmd import (
+        shard_mlfmm_tree,
+        shard_slfmm,
+        sharded_mlfmm_tree_matvec_fn,
+        sharded_mlfmm_tree_solve_fn,
+        sharded_slfmm_matvec_fn,
+        sharded_slfmm_solve_fn,
+    )
+    from mathaudio_tpu_torch.parallel.spmd import build_sharded_system, sharded_gmres_fn, unshard
+    from mathaudio_tpu_torch.solvers.krylov import KrylovConfig, gmres, gmres_pipelined_ghysels
+    from mathaudio_tpu_torch.solvers.preconditioners import AdditiveSchwarz
+    from mathaudio_tpu_torch.solvers.sparse import CsrMatrix
+    from mathaudio_tpu_torch.testfunctions import functions
+
+    t_rank = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    c64, f64 = torch.complex64, torch.float64
+    lines, walls, shares, launches = [], {}, {}, {}
+    out = dict(lines=lines, walls=walls, shares=shares, launches=launches,
+               device=torch.cuda.get_device_name(dev), backend=dist.get_backend())
+    lead = rank == 0
+
+    def note(msg):  # progress on stderr at once: a stuck rank shows where it stopped
+        print(f"parallel rank {rank}/{world} at {time.perf_counter() - t_rank:.1f} s: {msg}",
+              file=sys.stderr, flush=True)
+
+    def say(msg):  # kept for the parent's summary
+        lines.append(msg)
+        note(msg)
+
+    def fail(what):
+        raise AssertionError(f"parallel rank {rank}/{world}: {what}")
+
+    def timed(label, sharded_fn, unsharded_fn):
+        """Walls (sharded over the world; unsharded on rank 0's card) and
+        the sharded run's collective share of device time."""
+        note(f"timing {label}")
+        walls[label] = dict(sharded=_par_wall_ms(sharded_fn, dev))
+        shares[label] = _collective_share(sharded_fn, dev)
+        if lead and unsharded_fn is not None:
+            walls[label]["unsharded"] = _par_wall_ms(unsharded_fn, dev, sharded=False)
+        dist.barrier()
+
+    def counted_run(label, fn):
+        _sync(dev)
+        dia.reset_launches()
+        bem_assembly.reset_launches()
+        result = fn()
+        _sync(dev)
+        launches[label] = dict(dia=dict(dia.LAUNCHES_BY_SHAPE),
+                               bem={v: c for v, c in bem_assembly.LAUNCHES.items() if c})
+        return result
+
+    # (a) the headline sweep split by frequency lanes
+    t0 = time.perf_counter()
+    meshes = box_hierarchy(BENCH_N, BENCH_LEVELS)
+    mg = GeometricMultigrid(meshes, robin_tags=WALLS, dtype=torch.float32, device=dev)
+    nm = NodeMajorRoomSweep(RoomSweepModel(meshes[0], assembler=mg.assemblers[0], **ROOM), mg)
+    params = nm.params()
+    _sync(dev)
+    say(f"(a) host build n={BENCH_N} on each rank: {time.perf_counter() - t0:.2f} s")
+    n_freqs = BENCH_FREQS
+    ks = torch.linspace(0.55, 2.2, n_freqs, dtype=torch.float32, device=dev)
+    lanes = n_freqs // world
+    knobs = dict(SWEEP_KNOBS, freq_chunk=min(BENCH_CHUNK, lanes))
+    config = KrylovConfig(max_iterations=500, tolerance=1e-5, restart=6)
+    fmesh = init_device_mesh("cuda", (world,), mesh_dim_names=("freq",))
+    sharded = nm.sharded_sweep_fn(fmesh, config, **knobs)
+    p, its, conv = counted_run("sweep", lambda: sharded(params, ks))
+    mine = slice(rank * lanes, (rank + 1) * lanes)
+    p1, its1, conv1 = nm.sweep_fn(config, **knobs)(params, ks[mine])
+    p_err = float(torch.max(torch.abs(p[mine] - p1)) / torch.max(torch.abs(p1)))
+    its_equal = bool(torch.equal(its[mine], its1))
+    modes = {key[0] for key in launches["sweep"]["dia"]}
+    say(f"(a) sharded sweep {n_freqs} x {meshes[0].num_nodes} over {world} rank(s), "
+        f"{lanes} lanes each in chunks of {knobs['freq_chunk']}: converged {int(conv.sum())}/"
+        f"{n_freqs}, iterations mean {float(its.float().mean()):.3f} max {int(its.max())}; "
+        f"this rank's lanes vs the unsharded sweep of its chunk: max err {p_err:.3e} of max|p| "
+        f"(limit {PAR_SWEEP_TOL:g}), iterations equal {its_equal}; DIA modes launched "
+        f"{sorted(modes)}")
+    if int(conv.sum()) != n_freqs or not p_err <= PAR_SWEEP_TOL or not its_equal:
+        fail(f"(a) sharded sweep: converged {int(conv.sum())}, err {p_err:.3e}, "
+             f"iterations equal {its_equal}")
+    if modes != set(MODES):
+        fail(f"(a) the sweep launched the DIA modes {sorted(modes)}, not {MODES}")
+    if not bool(torch.isfinite(p).all()) or tuple(p.shape) != (n_freqs, 2):
+        fail(f"(a) bad pressures: shape {tuple(p.shape)}")
+    # one card's baseline: the whole band in the ranks' chunks (the same
+    # anchors per chunk), so both sides solve the same systems
+    full = nm.sweep_fn(config, **knobs)
+    out["sweep_its"] = dict(sharded=float(its.float().mean()))
+    if lead:
+        pf, itsf, convf = full(params, ks)
+        f_err = float(torch.max(torch.abs(p - pf)) / torch.max(torch.abs(pf)))
+        mean_f = out["sweep_its"]["one_card"] = float(itsf.float().mean())
+        d_its = abs(mean_f - out["sweep_its"]["sharded"]) / mean_f
+        say(f"(a) one card's sweep of the whole band in the ranks' chunks: converged "
+            f"{int(convf.sum())}/{n_freqs}, iterations mean {mean_f:.4f} (sharded "
+            f"{out['sweep_its']['sharded']:.4f}; limit {PAR_CROSS_ITS:g} apart), lanes with equal "
+            f"iterations {int((its == itsf).sum())}/{n_freqs}; vs the sharded lanes max err "
+            f"{f_err:.3e} of max|p| (limit {PAR_CROSS_TOL:g})")
+        if not (bool(convf.all()) and f_err <= PAR_CROSS_TOL and d_its <= PAR_CROSS_ITS):
+            fail(f"(a) one card's sweep differs from the sharded one: err {f_err:.3e}, "
+                 f"iteration means {mean_f:.4f} / {out['sweep_its']['sharded']:.4f}")
+        del pf
+    timed("(a) sweep", lambda: sharded(params, ks), lambda: full(params, ks))
+    del p1, full
+    torch.cuda.empty_cache()
+
+    # (b) BemSolver with a device mesh: each rank assembles its rows
+    dmesh = init_device_mesh("cuda", (world,), mesh_dim_names=("dof",))
+    out["collective_us"] = _collective_us(dev, dmesh.get_group("dof"), 5120 // world)
+    out["bem_rows"] = -(-(20 * 4 ** BEM_SUBDIV) // world)
+    for variant, ka, bm in PAR_BEM_CASES:
+        prob = BemProblem.rigid_sphere(ka, subdivisions=BEM_SUBDIV)
+        base = dict(method=SolverMethod.GMRES, tolerance=PATH3_GMRES_TOL, burton_miller=bm)
+        solver_sh = BemSolver(BemSolverConfig(**base, device_mesh=dmesh), device=dev)
+        solver_1 = BemSolver(BemSolverConfig(**base), device=dev)
+        sol = counted_run(variant, lambda: solver_sh.solve(prob))
+        if launches[variant]["bem"].get(variant, 0) == 0:
+            fail(f"(b) {variant}: the kernel was not launched: {launches[variant]}")
+        info = sol.info
+        if lead:
+            ref = solver_1.solve(prob)
+            mesh5 = prob.mesh
+            k = prob.physics.wave_number
+            centers = torch.tensor(mesh5.centers, dtype=torch.float32, device=dev)
+            b = prob.incident.pressure(centers, k)
+            if bm:
+                beta = solver_1.burton_miller_beta(prob)
+                a = assemble_burton_miller(mesh5, k, beta, device=dev)
+                normals = torch.tensor(mesh5.normals, dtype=torch.float32, device=dev)
+                b = b - beta * prob.incident.normal_derivative(centers, normals, k)
+            else:
+                a = assemble_collocation_matrix(mesh5, k, device=dev)
+            res = float(torch.linalg.norm(a @ sol.surface_pressure - b) / torch.linalg.norm(b))
+            err = float(torch.linalg.norm(sol.surface_pressure - ref.surface_pressure)
+                        / torch.linalg.norm(ref.surface_pressure))
+            d_it = abs(info["iterations"] - ref.info["iterations"])
+            say(f"(b) BemSolver {variant} ka {ka:g} N = {mesh5.num_elements} over {world} rank(s), "
+                f"{out['bem_rows']} rows each: converged {info['converged']}, {info['iterations']} "
+                f"iterations (unsharded {ref.info['iterations']}), ||A p - b||/||b|| {res:.3e} "
+                f"(limit {PAR_RESIDUAL:g}), vs unsharded rel {err:.3e} (limit {PAR_BEM_TOL:g}), "
+                f"sharded_over {info.get('sharded_over')}, launches {launches[variant]['bem']}")
+            if not (info["converged"] and res <= PAR_RESIDUAL and err <= PAR_BEM_TOL
+                    and d_it <= PAR_ITER_TOL and info.get("sharded_over") == world):
+                fail(f"(b) {variant}: {info}, residual {res:.3e}, err {err:.3e}")
+            del a, ref
+        timed(f"(b) {variant}", lambda: solver_sh.solve(prob), lambda: solver_1.solve(prob))
+        torch.cuda.empty_cache()
+
+    # (c) the halo ELL, device Schwarz and Ghysels GMRES on a FEM system
+    t0 = time.perf_counter()
+    asm = HelmholtzAssembler(unit_cube_tetrahedra(PAR_FEM_N), robin_tags=WALLS, dtype=f64,
+                             device=dev)
+    vals = asm.system_values(PAR_FEM_K, {t: -1j * PAR_FEM_K * 0.2 for t in WALLS})
+    csr = CsrMatrix(asm.csr.indptr, asm.csr.indices, vals.cpu().numpy(), asm.csr.shape)
+    n = csr.shape[0]
+    xs = np.linspace(0.0, 1.0, n)
+    rhs = np.exp(-((xs - 0.4) ** 2) / 0.02).astype(np.complex128)
+    system = build_sharded_system(csr, rhs, world, schwarz_overlap=1, device=dev)
+    say(f"(c) FEM system n={PAR_FEM_N}: {n} nodes, {csr.nnz} nonzeros, halo {system.ell.halo}, "
+        f"Schwarz halo {system.schwarz.overlap}, block {system.schwarz.inv_blocks.shape[-1]}, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    x_direct = scipy.sparse.linalg.spsolve(
+        scipy.sparse.csr_matrix((csr.data, csr.indices, csr.indptr), shape=csr.shape).tocsc(), rhs)
+    note("(c) direct solve done")
+    kcfg = KrylovConfig(**PAR_FEM_GMRES)
+    ell_op = csr.to_ell().operator(device=dev)
+    pre1 = AdditiveSchwarz.from_csr(csr, world, 1, device=dev)
+    note("(c) unsharded ELL operator and Schwarz built")
+    rhs_t = torch.tensor(rhs, device=dev)
+    for label, solver in (("gmres", gmres), ("ghysels", gmres_pipelined_ghysels)):
+        solve = sharded_gmres_fn(dmesh, kcfg, solver=solver)
+        sol = solve(system)
+        x = unshard(sol.x, n).cpu().numpy()
+        err = float(np.max(np.abs(x - x_direct)) / np.max(np.abs(x_direct)))
+        say(f"(c) sharded {label} + device Schwarz: converged {bool(sol.converged)}, "
+            f"{int(sol.iterations)} iterations, vs scipy's direct solve {err:.3e} of max|x| "
+            f"(limit {PAR_FEM_TOL:g})")
+        if not (bool(sol.converged) and err <= PAR_FEM_TOL):
+            fail(f"(c) {label}: converged {bool(sol.converged)}, err {err:.3e}")
+        timed(f"(c) {label}", lambda: solve(system),
+              lambda: solver(ell_op, rhs_t, config=kcfg, preconditioner=pre1))
+    del system, ell_op, pre1, asm
+    torch.cuda.empty_cache()
+
+    # (d), (e) the cluster-sharded SLFMM and the sharded MLFMM tree
+    inc = plane_wave((0.0, 0.0, 1.0))
+    rng = np.random.default_rng(0)
+    fmm_mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("fmm",))
+    for label, subdiv, k, beta, build, gcfg, shard, mv_fn, solve_fn in (
+            ("(d) slfmm", FMM_SUBDIV, FMM_K, 1j / FMM_K,
+             lambda m, k, beta: fmm.build_slfmm_system(m, k, beta=beta, stability_tau=1e4,
+                                                       agg_phase_f32=True, dtype=f64, device=dev),
+             FMM_GMRES, shard_slfmm, sharded_slfmm_matvec_fn, sharded_slfmm_solve_fn),
+            ("(e) mlfmm tree", MLFMM_SUBDIV, MLFMM_K, 0.0,
+             lambda m, k, beta: fmm.build_mlfmm_tree_system(m, k, **MLFMM_BUILD, dtype=f64,
+                                                            device=dev),
+             MLFMM_GMRES, shard_mlfmm_tree, sharded_mlfmm_tree_matvec_fn,
+             sharded_mlfmm_tree_solve_fn)):
+        mesh_f = icosphere(1.0, subdiv)
+        nf = mesh_f.num_elements
+        t0 = time.perf_counter()
+        op64 = build(mesh_f, k, beta)
+        pre64 = fmm.ClusterBlockPreconditioner.from_operator(op64)
+        sharded_op = shard(op64.data, world).to(c64)
+        op32, pre32 = fmm.gather_form(op64.to(c64)), pre64.to(c64)
+        _sync(dev)
+        t_build = time.perf_counter() - t0
+        x = torch.as_tensor(rng.standard_normal(nf) + 1j * rng.standard_normal(nf),
+                            dtype=c64, device=dev)
+        mv = mv_fn(fmm_mesh)
+        y = mv(sharded_op, x)
+        y1 = op32.matvec(x)
+        mv_err = float(torch.linalg.norm(y - y1) / torch.linalg.norm(y1))
+        rhs64 = _rigid_rhs(mesh_f, inc, k, beta, {"dtype": f64, "device": dev})
+        cfg = KrylovConfig(**gcfg)
+        solve = solve_fn(fmm_mesh, cfg)
+        sol = solve(sharded_op, pre32, rhs64.to(c64))
+        if lead:
+            ref = gmres(op32, rhs64.to(c64), config=cfg, preconditioner=pre32)
+            sol64 = gmres(fmm.gather_form(op64), rhs64, config=cfg, preconditioner=pre64)
+            mie = _mie_surface(mesh_f, k, dev, max(60, int(2 * k) + 20),
+                               float(np.linalg.norm(mesh_f.centers, axis=1).mean()))
+            mie_sh, mie64 = rel_l2(sol.x, mie), rel_l2(sol64.x, mie)
+            d_it = abs(int(sol.iterations) - int(ref.iterations))
+            say(f"{label} N = {nf}, k = {k:g}: build + shard {t_build:.2f} s on each rank; "
+                f"sharded matvec vs unsharded gather form rel {mv_err:.3e} (limit "
+                f"{PAR_FMM_MATVEC_TOL:g}); sharded GMRES converged {bool(sol.converged)}, "
+                f"{int(sol.iterations)} iterations (unsharded {int(ref.iterations)}), Mie rel L2 "
+                f"{mie_sh:.4e} vs float64 {mie64:.4e} (diff limit {FMM_MIE_TOL:g})")
+            if not (mv_err <= PAR_FMM_MATVEC_TOL and bool(sol.converged) and d_it <= PAR_ITER_TOL
+                    and abs(mie_sh - mie64) <= FMM_MIE_TOL):
+                fail(f"{label}: matvec {mv_err:.3e}, converged {bool(sol.converged)}, iterations "
+                     f"{int(sol.iterations)} vs {int(ref.iterations)}, Mie {mie_sh:.4e} vs "
+                     f"{mie64:.4e}")
+            del ref, sol64
+        timed(f"{label} matvec", lambda: mv(sharded_op, x), lambda: op32.matvec(x))
+        timed(f"{label} solve", lambda: solve(sharded_op, pre32, rhs64.to(c64)),
+              lambda: gmres(op32, rhs64.to(c64), config=cfg, preconditioner=pre32))
+        del op64, pre64, sharded_op, op32, pre32
+        torch.cuda.empty_cache()
+
+    # (f) the smaller routes, then the port's dry run at n = world
+    mesh_2d = sweep_mesh(world, dof_parallel=2 if world % 2 == 0 and world >= 4 else 1)
+    model = RoomSweepModel(unit_cube_tetrahedra(PAR_ROOM_N), wall_tags=WALLS, absorption=0.1,
+                           listening_positions=((0.25, 0.25, 0.25), (0.7, 0.6, 0.4)), device=dev)
+    rcfg = KrylovConfig(max_iterations=400, tolerance=1e-5, restart=20)
+
+    def step(prm, kk):
+        return sweep_pressure(prm, kk, absorption=model.absorption, config=rcfg,
+                              num_nodes=model.num_nodes, ell_width=model.ell_width)
+
+    rks = torch.linspace(0.8, 2.5, 8 * world, dtype=torch.float32)
+    rp, rits, rconv = shard_frequency_sweep(mesh_2d, step)(shard_room_params(mesh_2d,
+                                                                             model.params()), rks)
+    up, uits, _ = step(model.params(), rks.to(dev))
+    r_err = float(torch.max(torch.abs(rp - up)) / torch.max(torch.abs(up)))
+    pop = torch.as_tensor(np.random.default_rng(5).uniform(-5.12, 5.12,
+                                                           (PAR_DE_POP, PAR_DE_DIM)), device=dev)
+    e = shard_population_eval(mesh_2d, functions.rastrigin)(pop)
+    e1 = torch.func.vmap(functions.rastrigin)(pop)
+    de_err = float(torch.max(torch.abs(e - e1) / torch.clamp_min(torch.abs(e1), 1.0)))
+    say(f"(f) shard_frequency_sweep + shard_room_params, {len(rks)} wavenumbers over "
+        f"{tuple(mesh_2d.shape)} (freq x dof): converged {int(rconv.sum())}/{len(rks)}, vs "
+        f"unsharded {r_err:.3e} of max|p| (limit {PAR_ROOM_TOL:g}), iterations equal "
+        f"{bool(torch.equal(rits, uits))}; shard_population_eval rastrigin {PAR_DE_POP} x "
+        f"{PAR_DE_DIM}: max diff {de_err:.3e} of max(1, |f|) (limit 1e-12)")
+    if not (bool(rconv.all()) and r_err <= PAR_ROOM_TOL and de_err <= 1e-12):
+        fail(f"(f): room sweep err {r_err:.3e}, DE err {de_err:.3e}")
+    timed("(f) de population", lambda: shard_population_eval(mesh_2d, functions.rastrigin)(pop),
+          lambda: torch.func.vmap(functions.rastrigin)(pop))
+    t0 = time.perf_counter()
+    r = dryrun._rank(rank, world, "cuda")
+    if lead:
+        say(dryrun.line(world, r) + f" ({time.perf_counter() - t0:.1f} s)")
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def parallel_phase(ops, dia, nm, dev, records, bem_timed):
+    """Phase 21: spawn one NCCL rank per card, run ``parallel_rank`` on
+    each, print what the ranks return, then hold against its twin and time
+    every kernel shape the ranks launched that no phase timed (DIA
+    ``records`` and the BEM shapes in ``bem_timed``, both updated).
+    Returns (the sweep's DIA launches by shape, {variant: [record]})."""
+    import torch
+
+    from mathaudio_tpu_torch.bem import sweep
+    from mathaudio_tpu_torch.bem.mesh import icosphere
+    from mathaudio_tpu_torch.parallel.launch import launch
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"parallel: {world} NCCL rank(s), one per card")
+    t0 = time.perf_counter()
+    outs = launch(parallel_rank, world, backend="nccl", timeout=PAR_TIMEOUT,
+                  join_timeout=PAR_JOIN)
+    t_ranks = time.perf_counter() - t0
+    for rank, o in enumerate(outs):
+        for line in (o["lines"] if rank == 0 else o["lines"][:2]):
+            log(f"parallel rank {rank}/{world} ({o['backend']}, {o['device']}): {line}")
+    lead = outs[0]
+    us = lead["collective_us"]
+    log(f"parallel: one all_reduce of a complex scalar {us['all_reduce']:.1f} us, one all_gather of "
+        f"{5120 // world} complex64 per rank {us['all_gather']:.1f} us (rank 0, 100 synchronised "
+        f"calls each)")
+    for label, w in lead["walls"].items():
+        nccl_ms, busy_ms, host_ms = lead["shares"][label]
+        worst = max(o["shares"][label][0] / max(o["shares"][label][1], 1e-9) for o in outs)
+        line = f"parallel {label}: sharded over {world} rank(s) {w['sharded']:.3f} ms"
+        if "unsharded" in w:
+            line += f", unsharded on one card {w['unsharded']:.3f} ms"
+        log(f"{line} (medians of 3 after a warm run); NCCL kernels {nccl_ms:.3f} of {busy_ms:.3f} "
+            f"device ms ({100 * nccl_ms / max(busy_ms, 1e-9):.1f}%, worst rank "
+            f"{100 * worst:.1f}%), host time in the collective calls {host_ms:.3f} ms, in a "
+            f"profiled sharded run")
+    wall, its = lead["walls"]["(a) sweep"], lead["sweep_its"]
+    n_nodes = nm.params().fine_tables.k.shape[1]
+    log(f"parallel (a) DoF-solves/s: sharded over {world} rank(s) "
+        f"{n_nodes * BENCH_FREQS / (wall['sharded'] / 1e3):.4e} (iterations mean "
+        f"{its['sharded']:.3f}), one card in the ranks' chunks "
+        f"{n_nodes * BENCH_FREQS / (wall['unsharded'] / 1e3):.4e} (iterations mean "
+        f"{its['one_card']:.3f}) (x{wall['unsharded'] / wall['sharded']:.2f})")
+
+    # the sweep's DIA launches (summed over ranks) and the shapes no phase timed
+    by_shape = {}
+    for o in outs:
+        for key, count in o["launches"]["sweep"]["dia"].items():
+            by_shape[key] = by_shape.get(key, 0) + count
+    params = nm.params()
+    by_n = {params.fine_tables.k.shape[1]: ("fine", params.offsets[0], params.fine_tables, False),
+            params.levels[1].tables.k.shape[1]: ("level1", params.offsets[1],
+                                                 params.levels[1].tables, True)}
+    ks = torch.linspace(0.55, 2.2, BENCH_FREQS, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    for key in sorted(set(by_shape) - set(records)):
+        mode, n, nf, x0 = key
+        label, offs, tabs, shifted = by_n[n]
+        cm, cb = _lanes(ks[:nf], shifted, torch.complex64, dev)
+        x = None if x0 else _rand_complex((n, nf), torch.complex64, gen, dev)
+        r = None if mode == "matvec" else _rand_complex((n, nf), torch.complex64, gen, dev)
+        records[key] = stencil_record(dia, f"parallel {label}", mode, offs, tabs, cm, cb, x, r,
+                                      dev)
+    for key, count in sorted(by_shape.items()):
+        log(f"  parallel DIA launches {key[0]}{'(x=0)' if key[3] else ''} at {key[1]} x "
+            f"{key[2]}: {count} (summed over the ranks)")
+
+    # the BEM row blocks (rows x 5120, F=1): every rank launched the same shape
+    bem_records = {}
+    rows = lead["bem_rows"]
+    st = sweep.sweep_statics(icosphere(1.0, BEM_SUBDIV), dtype=torch.float32, device=dev)
+    n = st.centers.shape[0]
+    twin = twin_pairwise(ops)
+    for variant, ka, _ in PAR_BEM_CASES:
+        count = sum(o["launches"][variant]["bem"].get(variant, 0) for o in outs)
+        shape = (variant, rows, n)
+        if shape not in bem_timed:  # the first rank's block: its diagonal is the surface's own
+            ks1 = torch.tensor([ka], dtype=torch.float32, device=dev)
+            nx = st.normals[:rows] if variant == "burton_miller" else None
+            bem_timed[shape] = bem_kernel_record(
+                f"parallel (b) f32 {rows} x {n} F=1", ops, twin, variant,
+                (st.centers[:rows], nx, st.qp, st.normals, st.qw, ks1), True)
+        bem_records.setdefault(variant, []).append(dict(bem_timed[shape], launches=count,
+                                                        path="parallel"))
+        log(f"  parallel (b) {variant} launches at {rows} x {n}, F=1: {count} (summed over the "
+            f"ranks)")
+    log(f"parallel: ranks {t_ranks:.1f} s (spawn included; rank 0 {lead['seconds']:.1f} s), "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return by_shape, bem_records
+
+
 def main() -> int:
     import argparse
 
@@ -4115,6 +4667,9 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="also print the registers, shared memory and spills ptxas reports for "
                          "every kernel of both sources, and fail if any kernel spills")
+    ap.add_argument("--only", choices=("parallel",),
+                    help="run only the kernels' builds and phase 21 (path 15, the sharded "
+                         "routes over every card) and print their kernels line")
     cli = ap.parse_args()
     profile = cli.profile
     t_start = time.perf_counter()
@@ -4161,6 +4716,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"host build n={BENCH_N}: {meshes[0].num_nodes} nodes, {meshes[0].num_elements} tets, "
         f"levels {[m.num_nodes for m in meshes]}, {time.perf_counter() - t0:.2f} s")
+    if cli.only == "parallel":
+        return parallel_only(bem_assembly, dia, nm, dev, t_start)
     small = {}
     for where in (dev, torch.device("cpu")):
         sm = box_hierarchy(8, 3)
@@ -4247,7 +4804,6 @@ def main() -> int:
     # 4c. slice 6a: every FEM sweep option of the main path
     option_shapes, cycle_shapes, option_runs, _ = options_phase(dia, nm, dev, ks, config, p,
                                                                 small, records)
-    dia_line = dia_entries(records, by_shape, option_shapes, cycle_shapes)
 
     # 5-10. paths 2 and 3, the dense BEM sweep and the single-frequency engines
     bem_records, bem_runs = bem_path(dev, (dia, bem_assembly))
@@ -4305,6 +4861,19 @@ def main() -> int:
     # 20. slice 7b: the test-function registry, the four DE apps and the hull
     de_runs = de_apps_phase(dev)
 
+    # 21. slice 8: the sharded routes, one NCCL rank per card; its sweep's
+    # DIA launches stand beside the main sweep's as the "parallel" run
+    bem_timed = {(v, *(int(d) for d in r["shape"].split("x"))): r
+                 for v, rec in bem_records.items() for r in rec.get("other_shapes", [])
+                 if r.get("nf") == 1}
+    option_shapes["parallel"], par_bem = parallel_phase(bem_assembly, dia, nm, dev, records,
+                                                        bem_timed)
+    dia_line = dia_entries(records, by_shape, option_shapes, cycle_shapes)
+    for variant, recs in par_bem.items():
+        for r in recs:
+            bem_records[variant].setdefault("other_shapes", []).append(r)
+            bem_records[variant]["launches"] += r["launches"]
+
     # profiles last, once every kernel has run
     if profile:
         profile_run("fem", lambda: sweep(params, ks), "dia_stencil")
@@ -4332,6 +4901,40 @@ def main() -> int:
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
         f"(kernel builds included{', with --profile' if profile else ''})")
     print(json.dumps(kernels_line), flush=True)
+    print(gpu_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def parallel_only(ops, dia, nm, dev, t_start) -> int:
+    """``--only parallel``: phase 21 alone; its kernels line lists the
+    kernels it launched, each at the shapes it launched them."""
+    import torch
+
+    records = {}
+    by_shape, par_bem = parallel_phase(ops, dia, nm, dev, records, {})
+    entries = []
+    for mode in MODES:
+        keys = sorted(k for k in by_shape if k[0] == mode)
+        main_key = max(keys, key=lambda k: (k[1], k[2], not k[3]))
+        entries.append(dict(
+            name=f"dia_stencil_{mode}", route="cuda", source=KERNEL_SOURCE, replaces=TPU_KERNEL,
+            launches=sum(by_shape[k] for k in keys), library_ms=None,
+            **{k: v for k, v in records[main_key].items() if k != "x0"},
+            other_shapes=[dict(records[k], launches=by_shape[k]) for k in keys if k != main_key],
+            launches_at_shape=by_shape[main_key]))
+    for variant, recs in par_bem.items():
+        name, replaces = BEM_KERNELS[variant]
+        entries.append(dict(name=name, route="cuda", source=BEM_SOURCE, replaces=replaces,
+                            library_ms=None, **{k: v for k, v in recs[0].items() if k != "path"}))
+    for entry in entries:
+        if entry["launches"] < 1:
+            raise AssertionError(f"kernel {entry['name']} was not launched on its path")
+    log(f"chip_smoke --only parallel: passed in {time.perf_counter() - t_start:.1f} s "
+        f"(kernel builds included)")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

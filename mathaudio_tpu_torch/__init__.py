@@ -6,6 +6,8 @@ and numpy only; CUDA kernels are built from ``kernels/`` at first use, so
 the package imports on a host without a GPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+``parallel/`` runs the sharded routes over several cards on
+``torch.distributed``, one process and one card per rank.
 """
 
 __version__ = "0.1.0"

@@ -6,8 +6,12 @@ are the SLFMM and, for rigid problems, the MLFMM tree; mixed problems run
 the SLFMM under either, as the reference does.
 
 Every dense solver method runs: LU, and Jacobi-preconditioned GMRES,
-BiCGStab, CGS or QMR-CGSTAB. The device-mesh sharding (slice 8) is a later
-slice of the port and raises a ``ValueError`` that names it.
+BiCGStab, CGS or QMR-CGSTAB. With a ``device_mesh`` (a torch.distributed
+DeviceMesh with a "dof" axis), a rigid problem's dense non-LU solve runs
+row-sharded over the axis's ranks, as the reference's does: each rank
+assembles only its own block of rows on its own card and the ranks run
+Jacobi-GMRES together (parallel/spmd.py); mixed problems and the FMM
+assemblies ignore the mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ import numpy as np
 import torch
 
 from mathaudio_tpu_torch.bem.assembly import (
+    _assemble_rows,
+    _mesh_tensors,
+    _resolve_row_block,
     assemble_burton_miller,
     assemble_collocation_matrix,
     assemble_mixed_system,
@@ -142,12 +149,6 @@ class BemSolver:
         self.dtype = dtype or default_float()
         self.device = device
 
-    def _check_config(self) -> None:
-        cfg = self.config
-        if cfg.device_mesh is not None:
-            raise ValueError("device_mesh sharding is not ported yet (slice 8, multi-GPU); "
-                             "pass device_mesh=None")
-
     def burton_miller_beta(self, problem: BemProblem) -> complex:
         """Burton–Miller coupling: i/(k + 1/h) times the configured scale
         (or the piecewise ka rule when the scale is 0/None)."""
@@ -174,10 +175,11 @@ class BemSolver:
             if problem.bc is not None:
                 return self._solve_mixed_fmm(problem)
             return self._solve_fmm(problem)
-        self._check_config()
         if problem.bc is not None:
             return self._solve_mixed(problem)
         cfg = self.config
+        if cfg.device_mesh is not None and cfg.method != SolverMethod.LU:
+            return self._solve_sharded(problem)
         mesh = problem.mesh
         k = problem.physics.wave_number
         device = resolve_device(self.device)
@@ -196,6 +198,58 @@ class BemSolver:
                 "n": mesh.num_elements}
         p = self._linear_solve(a, rhs, info)
         return BemSolution(problem, p, info)
+
+    def _solve_sharded(self, problem: BemProblem) -> BemSolution:
+        """The rigid dense solve row-sharded over the "dof" axis of
+        ``config.device_mesh``, on the mesh's devices: rank s assembles rows
+        s R .. (s + 1) R - 1 of the (N_pad, N_pad) system (R = ceil(N / S);
+        the padding rows are the identity, as spmd.shard_dense_rows pads
+        them), so no card and no host holds N x N; then Jacobi-GMRES over
+        the ranks, whatever the non-LU method (as the reference does)."""
+        from mathaudio_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
+        from mathaudio_tpu_torch.parallel.spmd import (
+            _dense_rowblock_solve,
+            partition_rows,
+            unshard,
+        )
+
+        cfg = self.config
+        dmesh = cfg.device_mesh
+        mesh = problem.mesh
+        k = problem.physics.wave_number
+        n_dev = axis_size(dmesh, "dof")
+        n = mesh.num_elements
+        r = partition_rows(n, n_dev)
+        r0 = axis_index(dmesh, "dof") * r
+        r1 = min(n, r0 + r)
+        centers, normals, qp, qw, self_r, self_w = _mesh_tensors(
+            mesh, cfg.quad_order, self.dtype, mesh_device(dmesh))
+        dev, cd = centers.device, complex_dtype_for(self.dtype)
+        ks = torch.tensor([k], dtype=self.dtype, device=dev)
+        beta = self.burton_miller_beta(problem) if cfg.burton_miller else 0.0
+        betas = torch.tensor([beta], dtype=cd, device=dev)
+        variant = "burton_miller" if cfg.burton_miller else "double_layer"
+        step = max(1, _resolve_row_block(None, n, qp.shape[1], centers, variant, rows=r1 - r0))
+        block = torch.zeros((r, r * n_dev), dtype=cd, device=dev)
+        for c0 in range(r0, r1, step):
+            c1 = min(r1, c0 + step)
+            block[c0 - r0:c1 - r0, :n] = _assemble_rows(
+                centers[c0:c1], normals[c0:c1], c0, self_r[c0:c1], self_w[c0:c1], normals, qp,
+                qw, ks, betas, cfg.burton_miller)[0]
+        pad = torch.arange(r1 - r0, r, device=dev)
+        block[pad, r0 + pad] = 1.0
+        rhs = torch.zeros(r, dtype=cd, device=dev)
+        rhs[:r1 - r0] = problem.incident.pressure(centers[r0:r1], k)
+        if cfg.burton_miller:
+            rhs[:r1 - r0] -= beta * problem.incident.normal_derivative(
+                centers[r0:r1], normals[r0:r1], k)
+        kcfg = KrylovConfig(max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+                            restart=cfg.restart)
+        sol = _dense_rowblock_solve(dmesh, kcfg, "dof", gmres, block, rhs)
+        info = {"method": cfg.method.value, "burton_miller": cfg.burton_miller, "n": n,
+                "converged": bool(sol.converged), "iterations": int(sol.iterations),
+                "sharded_over": n_dev}
+        return BemSolution(problem, unshard(sol.x, n), info)
 
     def _solve_mixed(self, problem: BemProblem) -> BemSolution:
         """Dense solve with per-element velocity/pressure BCs (see

@@ -148,7 +148,7 @@ class BemSolverConfig:
     # Honored as-is on every path, including mixed velocity/pressure
     # systems; raise it explicitly for tighter mixed-BC tolerances.
     quad_order: int = 3
-    # The JAX package takes a device mesh here to shard the dense Krylov
-    # solve by row blocks. The multi-GPU slice (slice 8) is not ported:
-    # anything but None raises a ValueError in BemSolver.
+    # A torch.distributed DeviceMesh with a "dof" axis: a rigid problem's
+    # dense non-LU solve then runs row-sharded over the axis's ranks
+    # (BemSolver._solve_sharded); mixed problems and the FMM ignore it.
     device_mesh: object = None

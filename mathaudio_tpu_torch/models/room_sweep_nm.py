@@ -1,6 +1,6 @@
 """Node-major frequency sweep of the FEM room model (counterpart of
 mathaudio_tpu/models/room_sweep_nm.py: NodeMajorParams,
-NodeMajorRoomSweep with sweep_fn and sweep_fn_jacobi).
+NodeMajorRoomSweep with sweep_fn, sharded_sweep_fn and sweep_fn_jacobi).
 
 Every vector is (N, F) with the frequency band in the minor axis; level
 operators are DIA stencils over frequency-shared real tables
@@ -323,6 +323,39 @@ class NodeMajorRoomSweep:
             return p, its, sol.converged
 
         return fn
+
+    def sharded_sweep_fn(
+        self,
+        mesh,
+        config: Optional[KrylovConfig] = None,
+        axis: str = "freq",
+        **knobs,
+    ):
+        """Frequency-lane sharding of the headline sweep over a
+        ``torch.distributed`` DeviceMesh (the rayon frequency loop,
+        room_simulator_fem.rs:1139-1160), one process and one card per rank.
+
+        The node-major layout makes this a pure data split: each rank runs
+        the complete ``sweep_fn`` (DIA kernel on its card) on its contiguous
+        chunk of ``ks``, with its own copy of the tables; there is no
+        collective inside the solve, and each rank's loops end on its own
+        chunk's convergence. The outputs are all-gathered over the axis, so
+        every rank returns the whole band's (pressure (F, L), iterations
+        (F,), converged (F,)) in ``ks`` order.
+
+        ``ks`` must split evenly over the mesh's ``axis`` (else ValueError)
+        and be sorted ascending. ``mg_coarse_anchors`` (in ``knobs``) counts
+        anchors per rank: each rank anchors its own chunk, so an unsharded
+        run with the same per-chunk grouping (anchors = per-rank count x
+        ranks, or ``freq_chunk`` = the rank's lanes) matches lane for lane."""
+        from mathaudio_tpu_torch.parallel.mesh import run_split
+
+        fn = self.sweep_fn(config, **knobs)
+
+        def sharded(params: NodeMajorParams, ks):
+            return run_split(mesh, axis, ks, lambda local: fn(params, local), "frequencies")
+
+        return sharded
 
     def sweep_fn_jacobi(self, config: Optional[KrylovConfig] = None):
         """Jacobi-preconditioned variant (no multigrid): (params, ks) ->

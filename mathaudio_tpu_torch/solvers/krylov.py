@@ -9,8 +9,15 @@ reference (rho = 0, omega = 0, a vanished Givens pivot, the pipelined
 variant's square-root breakdown) is kept, with its iteration-count
 convention, so a float64 run counts the reference's iterations.
 
-``axis_name`` (the reference's row-sharded vectors over a device mesh)
-comes with the multi-GPU slice 8 of the port: anything but None raises.
+``axis_name`` (the reference's row-sharded vectors over a device mesh):
+each rank passes its own rows of ``b`` and an operator on them, and names
+the mesh axis (resolved against the mesh in use, see
+parallel/mesh.py::use_mesh) or passes the process group the rows are split
+over. Every inner product, norm and Gram-Schmidt projection is then
+all-reduced over that group, so every stop test the host reads comes from a
+reduced value that all ranks hold bit for bit: they leave each loop
+together. GMRES then takes the restart length from the config as it is
+(the local row count no longer bounds the Krylov dimension).
 Float32 products run in true float32 (no TF32).
 """
 
@@ -22,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mathaudio_tpu_torch.parallel.mesh import all_reduce_sum, axis_group
 from mathaudio_tpu_torch.solvers.operators import as_matvec
 from mathaudio_tpu_torch.xtypes import full_f32_matmul
 
@@ -73,32 +81,30 @@ def _givens_host(a: complex, b: complex):
     return 1.0, 0.0j, phase * t
 
 
-def _no_axis(name: str, axis_name) -> None:
-    if axis_name is not None:
-        raise ValueError(
-            f"{name}(axis_name={axis_name!r}): row-sharded solves over several devices are not "
-            "ported yet; they come with slice 8 (multi-GPU) of the port"
-        )
-
-
 def _prep(a, m):
     return as_matvec(a), (as_matvec(m) if m is not None else (lambda v: v))
 
 
-def _vdot(x, y):
-    """<x, y> = sum conj(x) y, a 0-d tensor on the vectors' device."""
-    return torch.sum(torch.conj(x) * y)
+def _reducers(axis_name):
+    """(vdot, norm, psum) over the process group of ``axis_name`` (None:
+    this rank's vectors are the whole vectors). vdot(x, y) = sum conj(x) y
+    and norm are 0-d tensors on the vectors' device."""
+    group = axis_group(axis_name)
+    if group is None:
+        return (lambda x, y: torch.sum(torch.conj(x) * y)), torch.linalg.vector_norm, (lambda v: v)
+
+    def psum(v):
+        return all_reduce_sum(v, group)
+
+    return ((lambda x, y: psum(torch.sum(torch.conj(x) * y))),
+            (lambda v: torch.sqrt(psum(torch.sum(torch.abs(v) ** 2)))), psum)
 
 
-def _norm(v):
-    return torch.linalg.vector_norm(v)
-
-
-def _start(a, b, x0, config, preconditioner):
+def _start(a, b, x0, config, preconditioner, norm):
     """Shared prologue: (A, M, x0, ||b||, tol) with ||b|| floored at 1e-30."""
     a_mv, m_mv = _prep(a, preconditioner)
     x0 = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
-    b_norm = max(float(_norm(b)), 1e-30)
+    b_norm = max(float(norm(b)), 1e-30)
     return a_mv, m_mv, x0, b_norm, config.tolerance * b_norm + config.atol
 
 
@@ -118,9 +124,9 @@ def _host(*scalars):
 def cg(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=None,
        axis_name=None):
     """Conjugate gradients for SPD/HPD systems."""
-    _no_axis("cg", axis_name)
+    _vdot, _norm, _ = _reducers(axis_name)
     with full_f32_matmul():
-        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner)
+        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner, _norm)
         r = b - a_mv(x)
         z = m_mv(r)
         p = z
@@ -146,9 +152,9 @@ def bicgstab(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditione
     """BiCGStab for general systems. Stops on the recurrence residual, a
     vanished rho or omega (below 1e-30), or the budget; reports the true
     residual ||b - A x||."""
-    _no_axis("bicgstab", axis_name)
+    _vdot, _norm, _ = _reducers(axis_name)
     with full_f32_matmul():
-        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner)
+        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner, _norm)
         r = b - a_mv(x)
         r_hat = r
         one = torch.ones((), dtype=r.dtype, device=r.device)
@@ -180,9 +186,9 @@ def bicgstab(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditione
 def cgs(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=None,
         axis_name=None):
     """Conjugate gradient squared; stops as ``bicgstab`` does (rho only)."""
-    _no_axis("cgs", axis_name)
+    _vdot, _norm, _ = _reducers(axis_name)
     with full_f32_matmul():
-        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner)
+        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner, _norm)
         r = b - a_mv(x)
         r_hat = r
         p = q = torch.zeros_like(r)
@@ -214,9 +220,9 @@ def qmrcgstab(a, b, x0=None, config: KrylovConfig = KrylovConfig(), precondition
     with quasi-minimal-residual smoothing. Stops when the QMR bound
     tau sqrt(2k + 1) clears the tolerance (or on a vanished rho or omega,
     or the budget); reports the true residual."""
-    _no_axis("qmrcgstab", axis_name)
+    _vdot, _norm, _ = _reducers(axis_name)
     with full_f32_matmul():
-        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner)
+        a_mv, m_mv, x, b_norm, tol = _start(a, b, x0, config, preconditioner, _norm)
         r = b - a_mv(x)
         r_hat = r
         one = torch.ones((), dtype=r.dtype, device=r.device)
@@ -291,14 +297,14 @@ def _update(x, basis, hess, g, steps):
     return x
 
 
-def _restarted(cycle, a_mv, m_mv, b, x0, config):
+def _restarted(cycle, a_mv, m_mv, b, x0, config, norm):
     """The reference's outer loop around a GMRES ``cycle(x, r0, tol)`` ->
     (x, steps, residual estimate): the left-preconditioned reference norm
     ||M b||, a first cycle from M b (x0 None) or M (b - A x0), then
     restarts from the true preconditioned residual while unconverged."""
     with full_f32_matmul():
         mb = m_mv(b)
-        b_norm = max(float(_norm(mb)), 1e-30)
+        b_norm = max(float(norm(mb)), 1e-30)
         tol = config.tolerance * b_norm + config.atol
         if x0 is None:
             x, r_pre = torch.zeros_like(b), mb
@@ -306,7 +312,7 @@ def _restarted(cycle, a_mv, m_mv, b, x0, config):
             x = x0.to(b.dtype)
             r_pre = m_mv(b - a_mv(x))
         if config.max_iterations <= 0:
-            r_init = float(_norm(r_pre))
+            r_init = float(norm(r_pre))
             return _solution(x, 0, r_init / b_norm, r_init <= tol)
 
         x, its, res = cycle(x, r_pre, tol)
@@ -333,13 +339,13 @@ def gmres(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=N
     to the host, one synchronisation per step, and the small Givens and
     triangular-solve arithmetic runs there in double precision; vectors
     and the basis stay on ``b``'s device."""
-    _no_axis("gmres", axis_name)
     if isinstance(x0, KrylovConfig):
         raise TypeError("pass the solver config as gmres(a, b, config=...); "
                         "the third positional argument is the initial guess x0")
+    _, _norm, psum = _reducers(axis_name)
     a_mv, m_mv = _prep(a, preconditioner)
     n = b.shape[0]
-    m = min(config.restart, n)
+    m = config.restart if axis_name is not None else min(config.restart, n)
     dtype, dev = b.dtype, b.device
 
     def cycle(x, r0, tol):
@@ -356,9 +362,9 @@ def gmres(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=N
             steps += 1
             w = m_mv(a_mv(basis[j]))
             bj = basis[: j + 1]
-            h1 = torch.conj(bj) @ w
+            h1 = psum(torch.conj(bj) @ w)
             w = w - bj.T @ h1
-            h2 = torch.conj(bj) @ w
+            h2 = psum(torch.conj(bj) @ w)
             w = w - bj.T @ h2
             h_last = _norm(w)
             basis[j + 1] = w / torch.where(h_last > 1e-30, h_last, 1.0)
@@ -367,7 +373,7 @@ def gmres(a, b, x0=None, config: KrylovConfig = KrylovConfig(), preconditioner=N
             hess[: j + 2, j] = col
         return _update(x, basis, hess, g, steps), steps, res
 
-    return _restarted(cycle, a_mv, m_mv, b, x0, config)
+    return _restarted(cycle, a_mv, m_mv, b, x0, config, _norm)
 
 
 def gmres_pipelined_ghysels(a, b, x0=None, config=KrylovConfig(), preconditioner=None,
@@ -384,10 +390,10 @@ def gmres_pipelined_ghysels(a, b, x0=None, config=KrylovConfig(), preconditioner
     outer loop restarts from the true residual, as the reference does. The
     reference keeps ``gmres`` as its production solver; this is its
     measured variant."""
-    _no_axis("gmres_pipelined_ghysels", axis_name)
+    _, _norm, psum = _reducers(axis_name)
     a_mv, m_mv = _prep(a, preconditioner)
     n = b.shape[0]
-    m = min(config.restart, n)
+    m = config.restart if axis_name is not None else min(config.restart, n)
     dtype, dev = b.dtype, b.device
     eps = torch.finfo(b.real.dtype).eps
 
@@ -407,9 +413,10 @@ def gmres_pipelined_ghysels(a, b, x0=None, config=KrylovConfig(), preconditioner
             steps += 1
             z = zbasis[j]  # = M A v_j, formed one step ahead
             bj = basis[: j + 1]
-            h = torch.conj(bj) @ z
-            z2 = torch.sum(torch.abs(z) ** 2)
-            w = m_mv(a_mv(z))
+            # the one fused reduction: projections and the candidate's norm^2
+            red = psum(torch.cat([torch.conj(bj) @ z, torch.sum(torch.abs(z) ** 2)[None].to(dtype)]))
+            h, z2 = red[:-1], red[-1].real
+            w = m_mv(a_mv(z))  # issued before the reduction's results are used
             h2 = z2 - torch.sum(torch.abs(h) ** 2)
             h_last = torch.sqrt(torch.clamp_min(h2, 0.0))
             safe_h = torch.where(h_last > 1e-30, h_last, 1.0)
@@ -424,7 +431,7 @@ def gmres_pipelined_ghysels(a, b, x0=None, config=KrylovConfig(), preconditioner
                 res = new_res
         return _update(x, basis, hess, g, steps), steps, res
 
-    return _restarted(cycle, a_mv, m_mv, b, x0, config)
+    return _restarted(cycle, a_mv, m_mv, b, x0, config, _norm)
 
 
 def gmres_with_guess(a, b, x0, config=KrylovConfig(), preconditioner=None, axis_name=None):

@@ -9,13 +9,15 @@ points agree to 1e-9 of the largest magnitude; every Krylov solver takes
 the same number of iterations. The port also evaluates the field from the
 reference's surface solution carried across as numpy arrays
 (mathaudio_tpu_torch.convert), directly and through the FMM evaluation.
-Options of later slices raise a ValueError that names the slice.
+A ``device_mesh`` on a one-rank process group gives the unsharded answer
+(tests/test_torch_spmd.py holds the sharded route at 2 and 4 ranks).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_parallel_ranks import one_rank_group
 from mathaudio_tpu.bem import room_acoustics as jax_room
 from mathaudio_tpu.bem import solver as jax_solver
 from mathaudio_tpu.bem import types as jax_types
@@ -140,14 +142,23 @@ def test_gmres_ilu_method_runs_jacobi_gmres_like_the_reference():
     assert sa.info["iterations"] == sb.info["iterations"]
 
 
-@pytest.mark.parametrize("option,slice_name", [
-    (dict(device_mesh=object()), "slice 8"),
-])
 @pytest.mark.parametrize("kind", ["rigid", "mixed"])
-def test_unported_options_name_their_slice(kind, option, slice_name):
+def test_device_mesh_on_one_rank_gets_the_unsharded_answer(kind):
+    """``device_mesh`` on a one-rank gloo mesh: the rigid GMRES solve runs
+    row-sharded (over one rank) and the mixed one unsharded, as in the
+    reference; both give the unsharded answer, and LU ignores the mesh."""
     _, tp = _problems(kind)
-    with pytest.raises(ValueError, match=slice_name):
-        solver.BemSolver(types.BemSolverConfig(**option), **CPU64).solve(tp)
+    gmres_cfg = dict(method=types.SolverMethod.GMRES, tolerance=1e-10)
+    want = solver.BemSolver(types.BemSolverConfig(**gmres_cfg), **CPU64).solve(tp)
+    with one_rank_group() as mesh:
+        got = solver.BemSolver(types.BemSolverConfig(**gmres_cfg, device_mesh=mesh),
+                               **CPU64).solve(tp)
+        lu = solver.BemSolver(types.BemSolverConfig(device_mesh=mesh), **CPU64).solve(tp)
+    assert got.info.get("sharded_over") == (1 if kind == "rigid" else None)
+    assert got.info["converged"] and got.info["iterations"] == want.info["iterations"]
+    _close(got.surface_pressure, want.surface_pressure, tol=1e-12)
+    assert "sharded_over" not in lu.info
+    _close(lu.surface_pressure, want.surface_pressure, tol=1e-8)
 
 
 def test_fmm_field_evaluation_matches_reference():

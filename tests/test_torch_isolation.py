@@ -50,7 +50,10 @@ def test_port_files_found():
                    "native/__init__.py", "bem/fmm_chip.py", "testfunctions/__init__.py",
                    "testfunctions/functions.py", "testfunctions/registry.py", "hull/__init__.py",
                    "hull/quickhull.py", "hull/export.py", "hull/testdata.py", "apps/run_de.py",
-                   "apps/benchmark_convergence.py", "apps/plot_de.py", "apps/plot_functions.py"):
+                   "apps/benchmark_convergence.py", "apps/plot_de.py", "apps/plot_functions.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/spmd.py",
+                   "parallel/fmm_spmd.py", "parallel/de.py", "parallel/launch.py",
+                   "parallel/dryrun.py"):
         assert f"mathaudio_tpu_torch/{module}" in names
 
 
@@ -77,7 +80,10 @@ def test_import_leaves_jax_unloaded():
         "mathaudio_tpu_torch.models.helmholtz_room, mathaudio_tpu_torch.fem.multigrid, "
         "mathaudio_tpu_torch.testfunctions, mathaudio_tpu_torch.hull, "
         "mathaudio_tpu_torch.apps.run_de, mathaudio_tpu_torch.apps.benchmark_convergence, "
-        "mathaudio_tpu_torch.apps.plot_de, mathaudio_tpu_torch.apps.plot_functions; "
+        "mathaudio_tpu_torch.apps.plot_de, mathaudio_tpu_torch.apps.plot_functions, "
+        "mathaudio_tpu_torch.parallel, mathaudio_tpu_torch.parallel.spmd, "
+        "mathaudio_tpu_torch.parallel.fmm_spmd, mathaudio_tpu_torch.parallel.launch, "
+        "mathaudio_tpu_torch.parallel.dryrun; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'mathaudio_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -167,6 +173,12 @@ def test_entry_points_refuse_to_drift_to_cpu(tmp_path):
                  lambda: plot_functions.main(["booth", "-o", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    from mathaudio_tpu_torch.parallel import sweep_mesh
+    from mathaudio_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    for call in (lambda: sweep_mesh(1), lambda: dryrun_multichip(1)):
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            call()
     meas = tmp_path / "speaker.csv"
     np.savetxt(meas, np.column_stack([np.geomspace(20.0, 20000.0, 8), np.zeros(8)]), delimiter=",")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -191,7 +203,7 @@ def test_package_inits_build_nothing():
     code = (
         "import sys, torch, mathaudio_tpu_torch, mathaudio_tpu_torch.fem, "
         "mathaudio_tpu_torch.models, mathaudio_tpu_torch.ops, mathaudio_tpu_torch.solvers, "
-        "mathaudio_tpu_torch.solvers.preconditioners; "
+        "mathaudio_tpu_torch.solvers.preconditioners, mathaudio_tpu_torch.parallel; "
         "from mathaudio_tpu_torch import kernels; "
         "bad = [m for m in sys.modules if m.split('.')[0] == 'triton']; "
         "bad += ['cuda initialised'] if torch.cuda.is_initialized() else []; "

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import mathaudio_tpu.solvers.blas as jax_blas
+from _torch_parallel_ranks import one_rank_group
 import mathaudio_tpu.solvers.krylov as jax_krylov
 from mathaudio_tpu.solvers import jacobi_preconditioner as jax_jacobi
 from mathaudio_tpu.solvers.direct import LuFactorization as JaxLu
@@ -135,11 +136,25 @@ def test_gmres_aliases_are_gmres():
 
 
 @pytest.mark.parametrize("name", SOLVERS + ["gmres_with_guess"])
-def test_axis_name_names_slice_8(name):
-    ta, tb = torch.tensor(A), torch.tensor(B)
-    args = (ta, tb, torch.zeros_like(tb)) if name == "gmres_with_guess" else (ta, tb)
-    with pytest.raises(ValueError, match="slice 8"):
-        getattr(krylov, name)(*args, axis_name="rows")
+def test_axis_name_on_a_one_rank_group_gets_the_unsharded_answer(name):
+    """``axis_name`` (the mesh axis, then the process group itself) on a
+    one-rank gloo group: every reduction is all-reduced over one rank, and
+    the solve takes the unsharded iterations to the unsharded x
+    (tests/test_torch_spmd.py holds 2 and 4 ranks against the reference)."""
+    from mathaudio_tpu_torch.parallel.mesh import use_mesh
+
+    ta, tb = torch.tensor(H if name == "cg" else A), torch.tensor(B)
+    args = (ta, tb, torch.tensor(X0)) if name == "gmres_with_guess" else (ta, tb)
+    cfg = krylov.KrylovConfig(max_iterations=200, tolerance=1e-10, restart=10)
+    want = getattr(krylov, name)(*args, config=cfg)
+    with one_rank_group() as mesh, use_mesh(mesh):
+        for axis in ("dof", mesh.get_group("dof")):
+            got = getattr(krylov, name)(*args, config=cfg, axis_name=axis)
+            assert int(got.iterations) == int(want.iterations)
+            assert bool(got.converged) and bool(want.converged)
+            np.testing.assert_allclose(got.x.numpy(), want.x.numpy(), rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="no device mesh is in use"):
+        getattr(krylov, name)(*args, config=cfg, axis_name="dof")
 
 
 @pytest.mark.parametrize("method", ["auto", "native", "embed"])

@@ -63,6 +63,7 @@ MODULES = {
 }
 FUNCTIONS = [
     ("models.room_sweep_nm", "NodeMajorRoomSweep.sweep_fn"),
+    ("models.room_sweep_nm", "NodeMajorRoomSweep.sharded_sweep_fn"),
     ("fem.multigrid_batched", "make_dia_mg"),
     ("fem.multigrid_batched", "mg_cycle_batched"),
     ("fem.multigrid", "GeometricMultigrid"),
@@ -240,8 +241,6 @@ def test_bench_keyword_call_matches_reference(sweeps):
 
 
 UNPORTED = {
-    "axis_name": (lambda nm: krylov.gmres(torch.eye(2), torch.ones(2), axis_name="rows"),
-                  "slice 8"),
     # values the reference does not know either
     "sweep_unknown_transfers": (lambda nm: nm.sweep_fn(mg_transfers="fft"), "unknown mg_transfers"),
     "sweep_unknown_cycle": (lambda nm: nm.sweep_fn(mg_cycle_type="x"), "unknown multigrid cycle"),
@@ -257,6 +256,17 @@ def test_unported_value_names_its_slice(sweeps, case):
     call, match = UNPORTED[case]
     with pytest.raises(ValueError, match=match):
         call(sweeps[1])
+
+
+def test_axis_name_runs_the_sharded_solve():
+    """The reference's ``axis_name`` runs: on a one-rank gloo group the
+    sharded GMRES gives the unsharded answer."""
+    from _torch_parallel_ranks import one_rank_group
+
+    a, b = torch.eye(2, dtype=torch.complex128) * 2.0, torch.ones(2, dtype=torch.complex128)
+    with one_rank_group() as mesh:
+        got = krylov.gmres(a, b, axis_name=mesh.get_group("dof"))
+    assert bool(got.converged) and torch.equal(got.x, krylov.gmres(a, b).x)
 
 
 def test_make_dia_mg_checks_offsets_against_levels(sweeps):
@@ -756,11 +766,10 @@ def test_slice_5b_returned_solve_takes_operators(factory):
 # F4: the reference packages' re-exports resolve on the port's packages.
 # --------------------------------------------------------------------------
 
-# Every reference subpackage that has a port package (parallel/ has none
-# yet: slice 8).
+# Every reference subpackage (each has a port package).
 PACKAGES = ("", ".models", ".fem", ".solvers", ".solvers.preconditioners", ".ops", ".bem",
             ".dsp", ".wave", ".wave.analytical", ".wave.special", ".common", ".optim", ".apps",
-            ".utils", ".native", ".testfunctions", ".hull")
+            ".utils", ".native", ".testfunctions", ".hull", ".parallel")
 # Re-exported names whose modules (or parts of them) are later slices.
 UNPORTED_EXPORTS = {}
 # Re-exported names that have no counterpart on purpose, with the reason.
@@ -1014,8 +1023,8 @@ def test_slice_4c_6c_signature_is_the_reference(where, qualname):
                for p in extras), extras
 
 
-# Public names of the reference's bem/ and fem/ modules with no counterpart
-# on purpose, and why.
+# Public names of the reference's bem/, fem/ and parallel/ modules with no
+# counterpart on purpose, and why.
 PYTREE = "JAX pytree registration: the port's operators are plain objects"
 NO_COUNTERPART = {
     ("bem.fmm", f"{cls}.{m}"): PYTREE
@@ -1026,6 +1035,9 @@ NO_COUNTERPART = {
 NO_COUNTERPART.update({("bem.fmm_chip", name): FMM_PLANES for name in (
     "Planes", "split_planes", "join_planes", "fmm_chip_matvec_fn", "fmm_chip_solve_fn",
     "build_on_host")})
+NO_COUNTERPART.update({("parallel.spmd", f"{cls}.{m}"): PYTREE
+                       for cls in ("ShardedEll", "DeviceSchwarz", "ShardedSystem")
+                       for m in ("tree_flatten", "tree_unflatten")})
 NO_COUNTERPART[("fem.dia", "dia_matvec_pallas")] = (
     "the Pallas kernel itself: the port's counterpart is the hand-written CUDA kernel "
     "kernels/dia_stencil.cu behind fem/dia.py's dia_stencil")
@@ -1033,11 +1045,11 @@ NO_COUNTERPART[("fem.dia", "dia_matvec_pallas")] = (
 
 def _reference_bem_fem():
     """(module path, qualified name) of every public function and class of
-    the reference's bem/ and fem/ modules, with their methods."""
+    the reference's bem/, fem/ and parallel/ modules, with their methods."""
     import pkgutil
 
     out = []
-    for package in ("bem", "fem"):
+    for package in ("bem", "fem", "parallel"):
         ref_pkg = importlib.import_module(f"mathaudio_tpu.{package}")
         for info in pkgutil.iter_modules(ref_pkg.__path__):
             ref_mod = importlib.import_module(f"mathaudio_tpu.{package}.{info.name}")
@@ -1047,7 +1059,8 @@ def _reference_bem_fem():
 
 def test_every_reference_bem_and_fem_callable_resolves_on_the_port():
     names = _reference_bem_fem()
-    assert len(names) >= 230 and ("bem.io", "BemConfig.build_problem") in names
+    assert len(names) >= 250 and ("bem.io", "BemConfig.build_problem") in names
+    assert ("parallel.fmm_spmd", "sharded_mlfmm_tree_solve_fn") in names
     assert set(NO_COUNTERPART) <= set(names)
     missing = []
     for where, qualname in names:
@@ -1128,5 +1141,66 @@ def test_slice_7b_signature_is_the_reference(where, qualname):
     for p, r in zip(kept, ref):
         assert p.kind == r.kind, (p.name, p.kind, r.kind)
         assert _same_default(p.default, r.default), (p.name, p.default, r.default)
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None
+               for p in extras), extras
+
+
+# --------------------------------------------------------------------------
+# Slice 8: parallel/ on torch.distributed. Every public function and class
+# of the reference's parallel/ modules, with its methods, takes the
+# reference's parameters (the mesh is a torch DeviceMesh, an axis a mesh
+# axis name or a process group); the extras are keyword-only ``device``
+# (the host builders' device) and ``device_type`` (sweep_mesh's), each
+# defaulting to None (the GPU). The pytree methods have no counterpart
+# (NO_COUNTERPART above).
+# --------------------------------------------------------------------------
+
+import mathaudio_tpu.parallel.de as jax_par_de  # noqa: E402
+import mathaudio_tpu.parallel.fmm_spmd as jax_par_fmm  # noqa: E402
+import mathaudio_tpu.parallel.mesh as jax_par_mesh  # noqa: E402
+import mathaudio_tpu.parallel.spmd as jax_par_spmd  # noqa: E402
+import mathaudio_tpu_torch.parallel.de as port_par_de  # noqa: E402
+import mathaudio_tpu_torch.parallel.fmm_spmd as port_par_fmm  # noqa: E402
+import mathaudio_tpu_torch.parallel.mesh as port_par_mesh  # noqa: E402
+import mathaudio_tpu_torch.parallel.spmd as port_par_spmd  # noqa: E402
+
+SLICE_8_MODULES = {
+    "parallel.mesh": (port_par_mesh, jax_par_mesh),
+    "parallel.spmd": (port_par_spmd, jax_par_spmd),
+    "parallel.fmm_spmd": (port_par_fmm, jax_par_fmm),
+    "parallel.de": (port_par_de, jax_par_de),
+}
+SLICE_8_FUNCTIONS = [(where, q) for where, (_, ref) in SLICE_8_MODULES.items()
+                     for q in _public_callables(ref)
+                     if (where, q) not in NO_COUNTERPART]
+
+
+def test_slice_8_covers_parallel():
+    assert len(SLICE_8_FUNCTIONS) >= 30
+    for where, qualname in (("parallel.mesh", "sweep_mesh"), ("parallel.spmd", "halo_exchange"),
+                            ("parallel.spmd", "DeviceSchwarz.from_csr"),
+                            ("parallel.spmd", "sharded_dense_gmres_fn"),
+                            ("parallel.fmm_spmd", "ShardedTreeLevel"),
+                            ("parallel.fmm_spmd", "sharded_slfmm_solve_fn"),
+                            ("parallel.de", "shard_population_eval")):
+        assert (where, qualname) in SLICE_8_FUNCTIONS
+
+
+@pytest.mark.parametrize("where,qualname", SLICE_8_FUNCTIONS,
+                         ids=[f"{w}:{q}" for w, q in SLICE_8_FUNCTIONS])
+def test_slice_8_signature_is_the_reference(where, qualname):
+    port_mod, ref_mod = SLICE_8_MODULES[where]
+    port = list(inspect.signature(_resolve(port_mod, qualname)).parameters.values())
+    ref = list(inspect.signature(_resolve(ref_mod, qualname)).parameters.values())
+    ref_names = {r.name for r in ref}
+    extras = [p for p in port if p.name in ("device", "device_type") and p.name not in ref_names]
+    kept = [p for p in port if p not in extras]
+    assert [p.name for p in kept] == [p.name for p in ref]
+    for p, r in zip(kept, ref):
+        assert p.kind == r.kind, (p.name, p.kind, r.kind)
+        if inspect.isfunction(r.default):  # ``solver=gmres``: each package's own
+            assert p.default.__name__ == r.default.__name__, (p.name, p.default, r.default)
+        else:
+            assert _same_default(p.default, r.default), (p.name, p.default, r.default)
     assert all(p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is None
                for p in extras), extras
