@@ -360,9 +360,10 @@ Phases, each fatal on failure:
    float64 solve's; (f) the room sweep within 1e-4 of max|p| of the
    unsharded one with equal iterations, the energies within 1e-12 of
    max(1, |f|); the dry run's gates. Per path the sharded wall over the
-   world and the unsharded wall on one card (medians of 3 after a warm run)
-   and the NCCL kernels' share of a profiled sharded run's device time; the
-   sweep's DoF-solves/s both ways. The DIA and BEM shapes the ranks launched
+   world and the unsharded wall on one card (medians of 3 after a warm run,
+   the two sides in turns, before any profile) and the NCCL kernels' share
+   of a profiled sharded run's device time; the sweep's DoF-solves/s both
+   ways. The DIA and BEM shapes the ranks launched
    that no phase timed are held against their twins and timed here; their
    launches join the kernels line (the DIA ones as the "parallel" run under
    ``launches_by_option``, the BEM row blocks under ``other_shapes``).
@@ -4174,27 +4175,39 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _par_wall_ms(fn, dev, sharded=True):
-    """Median wall ms of 3 synchronised ``fn()`` after a warm run; sharded:
-    the ranks start each run together (a barrier) and the slowest rank's
-    median is every rank's."""
+def _par_walls(sharded_fn, unsharded_fn, dev, lead):
+    """Median wall ms of 3 synchronised runs of each side after a warm run
+    of each, the sides taken in turns (sharded, unsharded, sharded, ...) so
+    that neither is always timed after the other. Sharded: the ranks start
+    each run together (a barrier) and the slowest rank's median is every
+    rank's; unsharded: on rank 0's card alone while the other ranks wait."""
     import torch
     import torch.distributed as dist
 
-    fn()
-    times = []
-    for _ in range(3):
-        if sharded:
-            dist.barrier()
+    def wall_ms(fn):
         _sync(dev)
         t0 = time.perf_counter()
         fn()
         _sync(dev)
-        times.append((time.perf_counter() - t0) * 1e3)
-    t = torch.tensor([statistics.median(times)], device=dev)
-    if sharded:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return float(t)
+        return (time.perf_counter() - t0) * 1e3
+
+    times = dict(sharded=[], unsharded=[])
+    for rep in range(4):  # the first round is the warm run
+        dist.barrier()
+        t = wall_ms(sharded_fn)
+        if rep:
+            times["sharded"].append(t)
+        if lead:
+            t = wall_ms(unsharded_fn)
+            if rep:
+                times["unsharded"].append(t)
+        dist.barrier()
+    t = torch.tensor([statistics.median(times["sharded"])], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    walls = dict(sharded=float(t))
+    if lead:
+        walls["unsharded"] = statistics.median(times["unsharded"])
+    return walls
 
 
 def _collective_share(fn, dev):
@@ -4314,13 +4327,12 @@ def parallel_rank(rank, world):
         raise AssertionError(f"parallel rank {rank}/{world}: {what}")
 
     def timed(label, sharded_fn, unsharded_fn):
-        """Walls (sharded over the world; unsharded on rank 0's card) and
-        the sharded run's collective share of device time."""
+        """Walls (sharded over the world; unsharded on rank 0's card), both
+        taken in turns before any profile, then the sharded run's
+        collective share of device time."""
         note(f"timing {label}")
-        walls[label] = dict(sharded=_par_wall_ms(sharded_fn, dev))
+        walls[label] = _par_walls(sharded_fn, unsharded_fn, dev, lead)
         shares[label] = _collective_share(sharded_fn, dev)
-        if lead and unsharded_fn is not None:
-            walls[label]["unsharded"] = _par_wall_ms(unsharded_fn, dev, sharded=False)
         dist.barrier()
 
     def counted_run(label, fn):
@@ -4596,8 +4608,8 @@ def parallel_phase(ops, dia, nm, dev, records, bem_timed):
         line = f"parallel {label}: sharded over {world} rank(s) {w['sharded']:.3f} ms"
         if "unsharded" in w:
             line += f", unsharded on one card {w['unsharded']:.3f} ms"
-        log(f"{line} (medians of 3 after a warm run); NCCL kernels {nccl_ms:.3f} of {busy_ms:.3f} "
-            f"device ms ({100 * nccl_ms / max(busy_ms, 1e-9):.1f}%, worst rank "
+        log(f"{line} (medians of 3 after a warm run, in turns); NCCL kernels {nccl_ms:.3f} of "
+            f"{busy_ms:.3f} device ms ({100 * nccl_ms / max(busy_ms, 1e-9):.1f}%, worst rank "
             f"{100 * worst:.1f}%), host time in the collective calls {host_ms:.3f} ms, in a "
             f"profiled sharded run")
     wall, its = lead["walls"]["(a) sweep"], lead["sweep_its"]

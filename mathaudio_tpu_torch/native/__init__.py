@@ -7,7 +7,8 @@ nonzeros per row at room sizes, which a Python loop would take hours
 over; and of the general FEM problem), PMIS coarsening for AMG and greedy
 multicoloring for the colored ILU.
 ``load()`` compiles it into ``_build/libmathaudio_native-<hash>.so`` (the
-hash covers the source and the flags, so an edited source rebuilds).
+hash covers the source and the flags, so an edited source rebuilds);
+``load_native()`` is the reference's name for it.
 Nothing is built while this package is imported.
 
 A build failure raises; no path falls back to the Python loops, which
@@ -87,9 +88,18 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def ilu0_factor_inplace(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray) -> None:
+def load_native() -> ctypes.CDLL:
+    """The reference's name for ``load()``: build (if needed) and load the
+    library. Where the reference returns None because the build failed,
+    this raises, as ``load()`` does: no caller has a Python fallback."""
+    return load()
+
+
+def ilu0_factor_inplace(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray) -> bool:
     """ILU(0) of a square CSR matrix with sorted, unique column indices per
-    row, in place on its complex128 ``data``."""
+    row, in place on its complex128 ``data``. Returns True, the reference's
+    "the native path ran": a failed build or factorisation raises instead
+    of returning False."""
     if data.dtype != np.complex128 or not data.flags.c_contiguous or not data.flags.writeable:
         raise ValueError("data must be a writeable, C-contiguous complex128 array")
     indptr64 = np.ascontiguousarray(indptr, np.int64)
@@ -104,6 +114,7 @@ def ilu0_factor_inplace(indptr: np.ndarray, indices: np.ndarray, data: np.ndarra
                                     data.ctypes.data, n)
     if rc != 0:
         raise RuntimeError(f"ilu0_factor_complex returned {rc}")
+    return True
 
 
 def _graph(indptr: np.ndarray, indices: np.ndarray):

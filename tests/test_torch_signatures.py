@@ -897,12 +897,12 @@ SLICE_6_MODULES = {
     "apps.qa_suite_fem": (port_qa_fem, jax_qa_fem),
     "apps.roomsim_fem": (port_roomsim_fem, jax_roomsim_fem),
 }
-# What slice 6 ports of modules that other slices share: the reference's
-# load_native (a build that may fall back to Python) is the port's
-# native.load (which raises instead); the quadrilateral and hexahedral
-# generators and their bases are held with slices 4c and 6c's rest below.
+# What slice 6 ports of modules that other slices share: the quadrilateral
+# and hexahedral generators and their bases are held with slices 4c and
+# 6c's rest below. ``native`` is held whole: its ``load_native`` raises
+# where the reference's returns None after a failed build (no caller of the
+# port falls back to Python), as its docstring says.
 SLICE_6_PARTIAL = {
-    "native": ("pmis_coarsen", "greedy_coloring", "ilu0_factor_inplace"),
     "fem.mesh": ("annular_mesh_triangles", "spherical_shell_mesh_tetrahedra",
                  "circular_mesh_triangles", "Mesh.boundary_nodes"),
     "fem.assembly": ("assemble_lumped_mass",),
@@ -1023,55 +1023,116 @@ def test_slice_4c_6c_signature_is_the_reference(where, qualname):
                for p in extras), extras
 
 
-# Public names of the reference's bem/, fem/ and parallel/ modules with no
-# counterpart on purpose, and why.
+# Public names of the reference's modules with no counterpart on purpose,
+# and why; (module, WHOLE_MODULE) stands for a module the port does not have.
+WHOLE_MODULE = "*"
 PYTREE = "JAX pytree registration: the port's operators are plain objects"
+PALLAS_BEM = ("the Pallas kernel itself: its counterpart is the hand-written CUDA kernel "
+              "kernels/bem_pairwise.cu behind ops/bem_assembly.py's pairwise_*(..., force=\"pallas\")")
 NO_COUNTERPART = {
-    ("bem.fmm", f"{cls}.{m}"): PYTREE
-    for cls in ("SlfmmOperator", "MlfmmOperator", "MlfmmTreeOperator",
-                "ClusterBlockPreconditioner")
+    (where, f"{cls}.{m}"): PYTREE
+    for where, classes in (("bem.fmm", ("SlfmmOperator", "MlfmmOperator", "MlfmmTreeOperator",
+                                        "ClusterBlockPreconditioner")),
+                           ("parallel.spmd", ("ShardedEll", "DeviceSchwarz", "ShardedSystem")),
+                           ("solvers.operators", ("DenseOperator", "DiagonalOperator",
+                                                  "EllOperator")),
+                           ("solvers.preconditioners.ilu", ("IluFixedPoint", "IluColored")),
+                           ("solvers.preconditioners.schwarz", ("AdditiveSchwarz",)))
+    for cls in classes
     for m in ("tree_flatten", "tree_unflatten")
 }
 NO_COUNTERPART.update({("bem.fmm_chip", name): FMM_PLANES for name in (
     "Planes", "split_planes", "join_planes", "fmm_chip_matvec_fn", "fmm_chip_solve_fn",
     "build_on_host")})
-NO_COUNTERPART.update({("parallel.spmd", f"{cls}.{m}"): PYTREE
-                       for cls in ("ShardedEll", "DeviceSchwarz", "ShardedSystem")
-                       for m in ("tree_flatten", "tree_unflatten")})
 NO_COUNTERPART[("fem.dia", "dia_matvec_pallas")] = (
     "the Pallas kernel itself: the port's counterpart is the hand-written CUDA kernel "
     "kernels/dia_stencil.cu behind fem/dia.py's dia_stencil")
+NO_COUNTERPART.update({("ops.bem_assembly", f"pairwise_{v}_pallas"): PALLAS_BEM
+                       for v in ("double_layer", "bm", "mixed", "kh")})
+NO_COUNTERPART[("xtypes", "x64_enabled")] = (
+    "reads JAX's global x64 flag, which the port does not have: its functions take a dtype")
+NO_COUNTERPART[("dsp.jax_response", WHOLE_MODULE)] = (
+    "the port's dsp/response.py (renamed, as nothing there is JAX; its signatures are held "
+    "with slice 3 above)")
+NO_COUNTERPART[("utils.cache", WHOLE_MODULE)] = (
+    "JAX's persistent compile cache: the port compiles no XLA programs")
+
+# One resolve case per top-level subpackage of the reference; "root" is the
+# package's own __init__ and its top-level modules (xtypes). Each case's
+# floor is its count of public names, so that a walk that found fewer fails.
+RESOLVE_FLOORS = {"apps": 28, "bem": 134, "common": 82, "dsp": 44, "fem": 97, "hull": 14,
+                  "models": 16, "native": 4, "ops": 12, "optim": 30, "parallel": 36,
+                  "solvers": 84, "testfunctions": 109, "utils": 8, "wave": 61, "root": 10}
+RESOLVE_ANCHORS = {"bem": ("bem.io", "BemConfig.build_problem"),
+                   "parallel": ("parallel.fmm_spmd", "sharded_mlfmm_tree_solve_fn"),
+                   "native": ("native", "load_native"),
+                   "ops": ("ops.bem_assembly", "pairwise_kh"),
+                   "root": ("xtypes", "pressure_to_spl")}
 
 
-def _reference_bem_fem():
-    """(module path, qualified name) of every public function and class of
-    the reference's bem/, fem/ and parallel/ modules, with their methods."""
+def _resolve_case(where: str) -> str:
+    top = where.split(".")[0]
+    return top if top in RESOLVE_FLOORS else "root"
+
+
+def _reference_modules(case: str):
+    """Paths (below the package) of every reference module of one resolve
+    case, its subpackages' ``__init__`` modules included."""
     import pkgutil
 
-    out = []
-    for package in ("bem", "fem", "parallel"):
-        ref_pkg = importlib.import_module(f"mathaudio_tpu.{package}")
-        for info in pkgutil.iter_modules(ref_pkg.__path__):
-            ref_mod = importlib.import_module(f"mathaudio_tpu.{package}.{info.name}")
-            out += [(f"{package}.{info.name}", q) for q in _public_callables(ref_mod)]
-    return out
+    if case == "root":
+        root = importlib.import_module("mathaudio_tpu")
+        return [""] + [i.name for i in pkgutil.iter_modules(root.__path__) if not i.ispkg]
+    pkg = importlib.import_module(f"mathaudio_tpu.{case}")
+    return [case] + [i.name.split(".", 1)[1]
+                     for i in pkgutil.walk_packages(pkg.__path__, f"mathaudio_tpu.{case}.")]
 
 
-def test_every_reference_bem_and_fem_callable_resolves_on_the_port():
-    names = _reference_bem_fem()
-    assert len(names) >= 250 and ("bem.io", "BemConfig.build_problem") in names
-    assert ("parallel.fmm_spmd", "sharded_mlfmm_tree_solve_fn") in names
-    assert set(NO_COUNTERPART) <= set(names)
-    missing = []
-    for where, qualname in names:
-        port_mod = importlib.import_module(f"mathaudio_tpu_torch.{where}")
+def _dotted(package: str, where: str) -> str:
+    return f"{package}.{where}" if where else package
+
+
+def test_resolve_cases_cover_the_reference():
+    import pkgutil
+
+    root = importlib.import_module("mathaudio_tpu")
+    tops = {i.name if i.ispkg else "root" for i in pkgutil.iter_modules(root.__path__)}
+    assert tops == set(RESOLVE_FLOORS)
+    assert {_resolve_case(where) for where, _ in NO_COUNTERPART} <= set(RESOLVE_FLOORS)
+    assert all(reason for reason in NO_COUNTERPART.values())
+
+
+@pytest.mark.parametrize("case", sorted(RESOLVE_FLOORS))
+def test_every_reference_callable_resolves_on_the_port(case):
+    """Every public function and class (with its methods) that a reference
+    module of ``case`` defines resolves on the port's module of the same
+    path, or stands in NO_COUNTERPART with its reason; a listed name that
+    resolves is an error too."""
+    names, missing = [], []
+    for where in _reference_modules(case):
+        assert _resolve_case(where) == case, where
+        ref_names = _public_callables(importlib.import_module(_dotted("mathaudio_tpu", where)))
+        names += [(where, q) for q in ref_names]
         try:
-            _resolve(port_mod, qualname)
-        except AttributeError:
-            missing.append((where, qualname))
-        else:
-            assert (where, qualname) not in NO_COUNTERPART, f"{where}:{qualname} is ported"
-    assert sorted(missing) == sorted(NO_COUNTERPART), sorted(set(missing) ^ set(NO_COUNTERPART))
+            port_mod = importlib.import_module(_dotted("mathaudio_tpu_torch", where))
+        except ModuleNotFoundError as e:
+            if e.name != _dotted("mathaudio_tpu_torch", where):
+                raise
+            missing.append((where, WHOLE_MODULE))
+            continue
+        assert (where, WHOLE_MODULE) not in NO_COUNTERPART, f"{where} is ported"
+        for qualname in ref_names:
+            try:
+                _resolve(port_mod, qualname)
+            except AttributeError:
+                missing.append((where, qualname))
+            else:
+                assert (where, qualname) not in NO_COUNTERPART, f"{where}:{qualname} is ported"
+    assert len(names) >= RESOLVE_FLOORS[case], len(names)
+    if case in RESOLVE_ANCHORS:
+        assert RESOLVE_ANCHORS[case] in names
+    listed = [key for key in NO_COUNTERPART if _resolve_case(key[0]) == case]
+    assert sorted(missing) == sorted(listed), sorted(set(missing) ^ set(listed))
 
 
 # --------------------------------------------------------------------------
