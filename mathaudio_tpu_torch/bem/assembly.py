@@ -51,6 +51,7 @@ import torch
 from mathaudio_tpu_torch.bem.mesh import SurfaceMesh
 from mathaudio_tpu_torch.fem.quadrature import gauss_1d
 from mathaudio_tpu_torch.ops.bem_assembly import pairwise_bm, pairwise_double_layer, pairwise_mixed
+from mathaudio_tpu_torch.utils.profiling import count, region
 from mathaudio_tpu_torch.xtypes import (
     complex_dtype_for,
     default_float,
@@ -208,18 +209,23 @@ def _assemble(centers, normals, qp, qw, self_r, self_w, ks, betas, with_bm, row_
 
     ``row_block > 0`` assembles (F, row_block, N) row chunks in a loop
     into the output, so only chunk-sized pairwise sums exist at once; the
-    last chunk is ragged (the reference pads it)."""
+    last chunk is ragged (the reference pads it). The assembly is the
+    region ``bem.assemble``; ``bem.row_chunks`` counts its chunks (1 in
+    one shot)."""
     n = centers.shape[0]
-    if row_block <= 0 or row_block >= n:
-        return _assemble_rows(centers, normals, 0, self_r, self_w, normals, qp, qw, ks,
-                              betas, with_bm)
-    out = torch.empty((ks.shape[0], n, n), dtype=complex_dtype_for(centers.dtype),
-                      device=centers.device)
-    for r0 in range(0, n, row_block):
-        r1 = min(n, r0 + row_block)
-        out[:, r0:r1] = _assemble_rows(centers[r0:r1], normals[r0:r1], r0, self_r[r0:r1],
-                                       self_w[r0:r1], normals, qp, qw, ks, betas, with_bm)
-    return out
+    with region("bem.assemble"):
+        if row_block <= 0 or row_block >= n:
+            count("bem.row_chunks")
+            return _assemble_rows(centers, normals, 0, self_r, self_w, normals, qp, qw, ks,
+                                  betas, with_bm)
+        out = torch.empty((ks.shape[0], n, n), dtype=complex_dtype_for(centers.dtype),
+                          device=centers.device)
+        for r0 in range(0, n, row_block):
+            r1 = min(n, r0 + row_block)
+            count("bem.row_chunks")
+            out[:, r0:r1] = _assemble_rows(centers[r0:r1], normals[r0:r1], r0, self_r[r0:r1],
+                                           self_w[r0:r1], normals, qp, qw, ks, betas, with_bm)
+        return out
 
 
 # Real output planes the pairwise kernel writes per (i, j) pair at F = 1.

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mathaudio_tpu_torch.utils.profiling import count
 from mathaudio_tpu_torch.xtypes import complex_dtype_for
 
 
@@ -34,6 +35,7 @@ class IncidentField:
         return torch.as_tensor(k, dtype=points.dtype, device=points.device)[..., None]
 
     def _distance(self, points: torch.Tensor):
+        count("host_sync.upload")
         src = torch.as_tensor(self.position, dtype=points.dtype, device=points.device)
         rv = points - src
         r = torch.linalg.vector_norm(rv, dim=-1)
@@ -42,8 +44,10 @@ class IncidentField:
     def pressure(self, points: torch.Tensor, k) -> torch.Tensor:
         cd = complex_dtype_for(points.dtype)
         kk = self._k(points, k)
+        count("host_sync.upload")
         amp = torch.tensor(self.amplitude, dtype=cd, device=points.device)
         if self.kind == "plane":
+            count("host_sync.upload")
             d = torch.as_tensor(self.direction, dtype=points.dtype, device=points.device)
             return amp * torch.exp(1j * (kk * (points @ d)).to(cd))
         _, rs = self._distance(points)
@@ -55,6 +59,7 @@ class IncidentField:
         kk = self._k(points, k)
         p = self.pressure(points, k)
         if self.kind == "plane":
+            count("host_sync.upload")
             d = torch.as_tensor(self.direction, dtype=points.dtype, device=points.device)
             return 1j * kk * (normals @ d).to(cd) * p
         rv, rs = self._distance(points)

@@ -20,6 +20,7 @@ from mathaudio_tpu_torch.bem.mesh import SurfaceMesh
 from mathaudio_tpu_torch.solvers.direct import complex_solve
 from mathaudio_tpu_torch.solvers.krylov import KrylovConfig
 from mathaudio_tpu_torch.solvers.krylov_batched import gmres_batched
+from mathaudio_tpu_torch.utils.profiling import count, tally
 from mathaudio_tpu_torch.xtypes import (
     complex_dtype_for,
     default_float,
@@ -66,6 +67,8 @@ def _solve_gmres(a, r, gmres_tol: float, gmres_restart: int):
     with full_f32_matmul():
         sol = gmres_batched(matvec, r.T, config=cfg,
                             preconditioner=lambda v: inv_diag * v, orth="cgs2")
+    tally("bem.gmres.lane_iterations", sol.iterations)
+    count("bem.gmres.lanes", int(r.shape[0]))
     return sol.x.T
 
 

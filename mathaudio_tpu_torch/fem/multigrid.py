@@ -27,6 +27,7 @@ import torch
 
 from mathaudio_tpu_torch.fem.assembly import HelmholtzAssembler, scatter_diag, scatter_ell
 from mathaudio_tpu_torch.fem.mesh import Mesh, box_mesh_tetrahedra, rectangular_mesh_triangles
+from mathaudio_tpu_torch.utils.profiling import count, region
 from mathaudio_tpu_torch.xtypes import (
     complex_dtype_for,
     default_float,
@@ -316,6 +317,7 @@ def _shift_coefficients(like, k, robin_coeff, shift):
     b1, b2 = shift
     cd = complex_dtype_for(like.dtype)
     k = _wavenumbers(k, like)
+    count("host_sync.upload")
     cm = torch.tensor(b1 + 1j * b2, dtype=cd, device=k.device) * (k**2).to(cd)
     return cm, _coefficient(robin_coeff, cd, k.device, k.shape)
 
@@ -421,20 +423,26 @@ def build_coarse_inv_chain(
     inverse is only paid for when refinement actually failed.
 
     ``anchor_ks``: (A,) ascending; ``robin_coeffs``: (A,) complex.
-    Returns (A, 2Nc, 2Nc)."""
-    a_batch = coarse_embedded(builder, anchor_ks, robin_coeffs, shift)
-    eye = torch.eye(a_batch.shape[1], dtype=a_batch.dtype, device=a_batch.device)
-    inverses = []
-    with full_f32_matmul():  # true f32 products: no TF32 in the chain
-        x = torch.linalg.inv(a_batch[0])
-        for a_i in a_batch:
-            for _ in range(newton_steps):
-                x = x @ (2.0 * eye - a_i @ x)
-            resid = torch.max(torch.sum(torch.abs(eye - a_i @ x), dim=1))
-            if not bool(torch.isfinite(resid) & (resid < 0.1)):
-                x = torch.linalg.inv(a_i)
-            inverses.append(x)
-    return torch.stack(inverses)
+    Returns (A, 2Nc, 2Nc). The chain is the region ``mg.coarse_chain``;
+    ``host_sync.coarse_chain`` counts its host reads: each anchor's check
+    and each direct inverse (``torch.linalg.inv`` reads its status)."""
+    with region("mg.coarse_chain"):
+        a_batch = coarse_embedded(builder, anchor_ks, robin_coeffs, shift)
+        eye = torch.eye(a_batch.shape[1], dtype=a_batch.dtype, device=a_batch.device)
+        inverses = []
+        with full_f32_matmul():  # true f32 products: no TF32 in the chain
+            count("host_sync.coarse_chain")
+            x = torch.linalg.inv(a_batch[0])
+            for a_i in a_batch:
+                for _ in range(newton_steps):
+                    x = x @ (2.0 * eye - a_i @ x)
+                resid = torch.max(torch.sum(torch.abs(eye - a_i @ x), dim=1))
+                count("host_sync.coarse_chain")
+                if not bool(torch.isfinite(resid) & (resid < 0.1)):
+                    count("host_sync.coarse_chain")
+                    x = torch.linalg.inv(a_i)
+                inverses.append(x)
+        return torch.stack(inverses)
 
 
 def build_coarse_inv(

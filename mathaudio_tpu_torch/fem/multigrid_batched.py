@@ -26,6 +26,7 @@ import torch
 
 from mathaudio_tpu_torch.fem.dia import DiaTables, _inv_diag, dia_jacobi, dia_residual
 from mathaudio_tpu_torch.fem.multigrid import _embedded_solve, _gather_sum
+from mathaudio_tpu_torch.utils.profiling import count, region
 from mathaudio_tpu_torch.xtypes import complex_dtype_for, full_f32_matmul
 
 
@@ -92,6 +93,7 @@ def make_dia_mg(
     cd = complex_dtype_for(levels[0].tables.k.dtype)
     k = ks.to(cd)
     b1, b2 = shift
+    count("host_sync.upload", 2)  # the two coefficients below
     zshift = torch.tensor(b1 + 1j * b2, dtype=cd, device=k.device)
     cb = torch.tensor(-1j * absorption, dtype=cd, device=k.device) * k  # (F,), all levels
     cms, cbs, inv_diags = [], [], []
@@ -256,8 +258,17 @@ def mg_cycle_batched(
 
     ``cycle`` "v" (one coarse visit), "w" (two) or "f" (an F visit, then
     a V visit). ``nu``/``nu_post``: pre/post smoothing steps, an int or a
-    per-level tuple (``nu_post=None`` = ``nu``)."""
+    per-level tuple (``nu_post=None`` = ``nu``). The whole cycle, entered
+    at level 0, is the region ``mg.cycle`` (utils/profiling.py)."""
     check_cycle(cycle)
+    if level == 0:
+        with region("mg.cycle"):
+            return _cycle_from(mgp, offsets, r, omega, nu, level, cycle, nu_post)
+    return _cycle_from(mgp, offsets, r, omega, nu, level, cycle, nu_post)
+
+
+def _cycle_from(mgp: DiaMg, offsets, r, omega, nu, level: int, cycle: str, nu_post):
+    """``mg_cycle_batched`` from ``level`` down."""
     if level == len(mgp.levels):
         return _coarse_solve_b(mgp.anchor_inv, r)
     if nu_post is None:

@@ -42,6 +42,7 @@ from mathaudio_tpu_torch.fem.multigrid_batched import (
 from mathaudio_tpu_torch.models.helmholtz_room import RoomSweepModel
 from mathaudio_tpu_torch.solvers.krylov import KrylovConfig
 from mathaudio_tpu_torch.solvers.krylov_batched import gmres_batched
+from mathaudio_tpu_torch.utils.profiling import count
 
 
 class NodeMajorParams(NamedTuple):
@@ -247,6 +248,7 @@ class NodeMajorRoomSweep:
             offsets = params.offsets
             k = ks.to(cd)
             cm_fine = k * k
+            count("host_sync.upload")
             cb_fine = torch.tensor(-1j * absorption, dtype=cd, device=k.device) * k
 
             na = nf if mg_coarse_anchors <= 0 else min(int(mg_coarse_anchors), nf)
@@ -258,6 +260,7 @@ class NodeMajorRoomSweep:
                     stacklevel=3,
                 )
             anchor_ks = torch.mean(ks.reshape(na, nf // na), dim=1)
+            count("host_sync.upload")
             anchor_inv = build_coarse_inv_chain(
                 params.mg_builder,
                 anchor_ks,
