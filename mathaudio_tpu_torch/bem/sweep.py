@@ -54,19 +54,30 @@ def _solve_gmres(a, r, gmres_tol: float, gmres_restart: int):
     reference's ``vmap`` of its single-vector ``gmres``: the JAX package's
     own tests show the two equal lane for lane (tests/test_nodemajor.py,
     ``TestBatchedGmres``), so the band is solved without F Python-level
-    solves. Vectors are (N, F); the matvec is a batched complex matrix
-    product, run in true float32 (no TF32)."""
+    solves. Vectors are (N, F); products run in true float32 (no TF32).
+    Each Arnoldi step applies the band only to the lanes still iterating:
+    one GEMV of the contiguous (N, N) view ``a[f]`` a lane, so a converged
+    lane's matrix is not read. The restart residual is a batched product
+    over every lane, since it decides which lanes iterate again."""
     diag = torch.diagonal(a, dim1=-2, dim2=-1)
     inv_diag = torch.where(torch.abs(diag) > 1e-30, 1.0 / diag, 1.0).T
 
     def matvec(v):
         return torch.matmul(a, v.T.unsqueeze(-1)).squeeze(-1).T
 
+    def matvec_lanes(v, lanes):
+        vt = v.T.contiguous()
+        out = torch.zeros_like(vt)
+        for f in lanes:
+            torch.mv(a[f], vt[f], out=out[f])
+        return out.T
+
     cfg = KrylovConfig(max_iterations=4 * gmres_restart, tolerance=gmres_tol,
                        restart=gmres_restart)
     with full_f32_matmul():
         sol = gmres_batched(matvec, r.T, config=cfg,
-                            preconditioner=lambda v: inv_diag * v, orth="cgs2")
+                            preconditioner=lambda v: inv_diag * v, orth="cgs2",
+                            a_mv_lanes=matvec_lanes)
     tally("bem.gmres.lane_iterations", sol.iterations)
     count("bem.gmres.lanes", int(r.shape[0]))
     return sol.x.T

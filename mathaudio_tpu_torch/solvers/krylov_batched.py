@@ -16,6 +16,18 @@ cycle stops once every lane is done (one host read per Arnoldi step), and
 a lane that has converged or spent its budget keeps its x, iterations and
 residual while the others restart. The arithmetic of each lane is the same
 in both modes.
+
+A caller whose operator can apply one lane without touching the others
+(a dense band: one GEMV a lane) passes ``a_mv_lanes``. Each Arnoldi step
+then reads ``done`` on the host once and applies the operator only to the
+lanes still iterating; a done lane's column is zero and everything it
+would feed is kept by the done-mask, so x, iterations and residual are
+those of the path without it. The cycle stops once no lane iterates (the
+``vmapped`` rule, which the done-mask makes equal to running the steps).
+The restart residual stays a full application: it decides whether a lane
+that had converged iterates again. ``gmres.matvecs`` counts applications
+of the whole operator: a step on k of F lanes counts k / F, and
+``gmres.lane_steps_skipped`` the F - k lanes left out.
 """
 
 from __future__ import annotations
@@ -48,7 +60,8 @@ def _any_on_host(mask) -> bool:
 
 
 def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner=None,
-                  orth: str = "cgs2", x0=None, a_res=None, vmapped: bool = False):
+                  orth: str = "cgs2", x0=None, a_res=None, vmapped: bool = False,
+                  a_mv_lanes=None):
     """Solve F systems A_f x_f = b_f, vectors stored (N, F).
 
     ``a_mv`` / ``preconditioner``: (N, F) -> (N, F), applying each lane's
@@ -65,7 +78,12 @@ def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner
     MG-preconditioned room sweep at restart 6).
 
     ``vmapped``: the lane semantics of the vmapped single-vector solver
-    (module notes)."""
+    (module notes).
+
+    ``a_mv_lanes``: optional (v, lanes) -> (N, F) applying the operator of
+    each lane in the host list ``lanes`` to its column of v and leaving the
+    other columns zero; the Arnoldi steps then skip the done lanes (module
+    notes)."""
     if orth not in ("cgs1", "cgs2"):
         raise ValueError(f"unknown orthogonalization {orth!r}")
     with region("gmres"):
@@ -112,12 +130,24 @@ def gmres_batched(a_mv, b, config: KrylovConfig = KrylovConfig(), preconditioner
             # basis vectors that exist.
             steps = m
             for j in range(m):
-                if vmapped and not _any_on_host(~done):
-                    steps = j  # the remaining steps would be no-ops on every lane
-                    break
+                # a break: the remaining steps would be no-ops on every lane
+                if a_mv_lanes is None:
+                    if vmapped and not _any_on_host(~done):
+                        steps = j
+                        break
+                    count("gmres.matvecs")
+                    av = a_mv(basis[j])
+                else:
+                    count("host_sync.gmres")
+                    lanes = [f for f, live in enumerate((~done).tolist()) if live]
+                    if not lanes:
+                        steps = j
+                        break
+                    count("gmres.matvecs", len(lanes) / nf)
+                    count("gmres.lane_steps_skipped", nf - len(lanes))
+                    av = a_mv_lanes(basis[j], lanes)
                 cnt = cnt + torch.where(done, 0, 1).to(torch.int32)
-                count("gmres.matvecs")
-                w = m_mv(a_mv(basis[j]))
+                w = m_mv(av)
                 bj = basis[: j + 1]
                 h1 = _dotc(bj, w)
                 w = w - _expand(h1, bj)

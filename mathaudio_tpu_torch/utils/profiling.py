@@ -4,7 +4,7 @@ torch.profiler alongside these.
 
 The port's own layer record (no counterpart in the reference): the hot
 paths open named regions (``region``) and count their events (``count``
-for host integers, ``tally`` for device tensors, kept by reference and
+for host numbers, ``tally`` for device tensors, kept by reference and
 summed when read). They record exactly while a ``torch.profiler`` session
 records (``torch.autograd``'s profiler-enabled flag); otherwise every call
 is one flag check. A region opens a ``record_function`` span of its name,
@@ -124,15 +124,17 @@ class Recorder:
                 if c.end is not None:
                     self._free.append(c.end)
         self._calls, self._stack = [], []
-        self._counts: Dict[str, int] = {}
+        self._counts: Dict[str, float] = {}
         self._tallies: Dict[str, list] = {}
 
     def region(self, name: str):
         """Context manager: a named region while recording, else nothing."""
         return _Region(self, name) if recording() else _OFF
 
-    def count(self, name: str, n: int = 1) -> None:
-        """Add the host integer ``n`` to counter ``name`` while recording."""
+    def count(self, name: str, n: float = 1) -> None:
+        """Add the host number ``n`` to counter ``name`` while recording:
+        an integer for events, or a share of one (``gmres.matvecs`` counts
+        a step on k of F lanes as k / F)."""
         if recording():
             self._counts[name] = self._counts.get(name, 0) + n
 
@@ -178,7 +180,7 @@ class Recorder:
 
     def snapshot(self) -> dict:
         """{"regions": {name: {"calls", "ms", "self_ms"}}, "counters":
-        {name: int}, "tallies": {name: sum}} over what was recorded since
+        {name: number}, "tallies": {name: sum}} over what was recorded since
         the last ``reset``; regions still open are left out."""
         spans = self._intervals()
         children = {}

@@ -105,6 +105,52 @@ def test_fused_residual_is_used_for_restarts():
     assert torch.equal(fused.x, plain.x)
 
 
+def _staggered(n=48, nf=5, seed=4):
+    # one off-diagonal scale a lane: at restart 6 the lanes converge at
+    # steps 7, 15 and 24, in the 2nd, 3rd and 4th cycle; two spend the budget
+    rng = np.random.default_rng(seed)
+    scale = np.array([0.02, 0.15, 0.3, 0.45, 0.6])[:, None, None]
+    a = np.eye(n) + scale * (rng.normal(size=(nf, n, n))
+                             + 1j * rng.normal(size=(nf, n, n))) / np.sqrt(n)
+    b = rng.normal(size=(n, nf)) + 1j * rng.normal(size=(n, nf))
+    return torch.tensor(a), torch.tensor(b)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("orth", ["cgs1", "cgs2"])
+def test_lane_operator_skips_done_lanes_and_changes_no_lane(orth, warm):
+    a, b = _staggered()
+    lanes_calls = []
+
+    def a_mv_lanes(v, lanes):
+        lanes_calls.append(list(lanes))
+        out = torch.zeros_like(v)
+        for f in lanes:
+            out[:, f] = a[f] @ v[:, f]
+        return out
+
+    inv_d = 1.0 / torch.diagonal(a, dim1=-2, dim2=-1).T
+    kw = dict(config=KrylovConfig(max_iterations=40, tolerance=1e-10, restart=6),
+              preconditioner=lambda v: v * inv_d, orth=orth,
+              x0=0.1 * torch.ones_like(b) if warm else None)
+    plain = gmres_batched(lambda v: torch.einsum("fij,jf->if", a, v), b, **kw)
+    lanes = gmres_batched(lambda v: torch.einsum("fij,jf->if", a, v), b, a_mv_lanes=a_mv_lanes,
+                          **kw)
+    assert torch.equal(lanes.iterations, plain.iterations)
+    assert torch.equal(lanes.converged, plain.converged)
+    np.testing.assert_allclose(lanes.x.numpy(), plain.x.numpy(),
+                               rtol=0, atol=1e-6 * float(plain.x.abs().max()))
+    # the per-lane products round unlike the batched einsum, so a residual
+    # near 1e-11 keeps few digits: the reference test's atol
+    np.testing.assert_allclose(lanes.residual_norm.numpy(), plain.residual_norm.numpy(),
+                               rtol=1e-6, atol=1e-14)
+    its = plain.iterations.tolist()
+    assert len(set(its)) >= 4 and 6 < min(its) and not all(plain.converged.tolist())
+    # a lane is applied at exactly the steps it iterates: never once done
+    assert [sum(f in c for c in lanes_calls) for f in range(b.shape[1])] == its
+    assert len(lanes_calls) < max(its) * b.shape[1]
+
+
 def test_givens_matches_reference():
     rng = np.random.default_rng(9)
     a = rng.normal(size=16) + 1j * rng.normal(size=16)

@@ -131,40 +131,70 @@ def test_fem_regions_land_in_the_trace_gmres_around_the_cycles(fem_sweep):
 
 
 def _system(n=20, nf=3, scale=1.0, seed=0):
+    """(a_mv, a_mv_lanes, b, lanes_calls): ``scale`` of the off-diagonal part,
+    one number or one a lane; ``lanes_calls`` records each ``lanes``."""
     g = torch.Generator().manual_seed(seed)
     noise = torch.randn(nf, n, n, dtype=torch.complex128, generator=g)
+    scale = torch.as_tensor(scale, dtype=torch.float64).reshape(-1, 1, 1)
     a = 4.0 * torch.eye(n, dtype=torch.complex128) + scale * noise / math.sqrt(n)
     b = torch.randn(n, nf, dtype=torch.complex128, generator=g)
-    return (lambda v: torch.einsum("fij,jf->if", a, v)), b
+    calls = []
+
+    def a_mv_lanes(v, lanes):
+        calls.append(list(lanes))
+        out = torch.zeros_like(v)
+        for f in lanes:
+            out[:, f] = a[f] @ v[:, f]
+        return out
+
+    return (lambda v: torch.einsum("fij,jf->if", a, v)), a_mv_lanes, b, calls
 
 
 # (name, scale of the off-diagonal part, tolerance, max iterations, x0, vmapped,
-#  expected (cycles, matvecs, host_sync.gmres)); restart 4 throughout
+#  lane operator, expected (cycles, matvecs, host_sync.gmres)); restart 4 throughout
 GMRES_CASES = [
     # an unreachable tolerance: three whole cycles, then the budget ends
-    ("budget", 1.0, 0.0, 12, False, False, (3, 3 * 4 + 2, 3)),
-    ("budget_warm", 1.0, 0.0, 12, True, False, (3, 1 + 3 * 4 + 2, 3)),
-    ("budget_vmapped", 1.0, 0.0, 12, False, True, (3, 3 * 4 + 2, 3 + 3 * 4)),
+    ("budget", 1.0, 0.0, 12, False, False, False, (3, 3 * 4 + 2, 3)),
+    ("budget_warm", 1.0, 0.0, 12, True, False, False, (3, 1 + 3 * 4 + 2, 3)),
+    ("budget_vmapped", 1.0, 0.0, 12, False, True, False, (3, 3 * 4 + 2, 3 + 3 * 4)),
     # A = 4 I: every lane converges at the first step; lockstep still
     # takes the cycle's 4 steps, vmapped stops at the second step's check
-    ("identity", 0.0, 1e-8, 40, False, False, (1, 4, 1)),
-    ("identity_vmapped", 0.0, 1e-8, 40, False, True, (1, 1, 2 + 1)),
+    ("identity", 0.0, 1e-8, 40, False, False, False, (1, 4, 1)),
+    ("identity_vmapped", 0.0, 1e-8, 40, False, True, False, (1, 1, 2 + 1)),
+    # a lane operator: one read of the done lanes a step, in place of
+    # vmapped's, and the cycle stops when no lane iterates
+    ("identity_lanes", 0.0, 1e-8, 40, False, False, True, (1, 1, 2 + 1)),
+    ("identity_vmapped_lanes", 0.0, 1e-8, 40, False, True, True, (1, 1, 2 + 1)),
+    ("budget_lanes", 1.0, 0.0, 12, False, False, True, (3, 3 * 4 + 2, 3 + 3 * 4)),
+    # lanes converge at steps 4, 10 and 18 of 5 cycles (4 + 4 + 4 + 4 + 2
+    # steps): 32 lane-steps of 3 lanes, 4 restart residuals; 18 step reads,
+    # the 5th cycle's stop, 5 restart checks
+    ("mixed_lanes", (0.1, 1.0, 2.0), 1e-6, 40, False, False, True,
+     (5, 32 / 3 + 4, 18 + 1 + 5)),
 ]
 
 
-@pytest.mark.parametrize("name,scale,tol,max_it,warm,vmapped,expected", GMRES_CASES,
+@pytest.mark.parametrize("name,scale,tol,max_it,warm,vmapped,lanes,expected", GMRES_CASES,
                          ids=[c[0] for c in GMRES_CASES])
 def test_gmres_counts_cycles_matvecs_and_host_reads(name, scale, tol, max_it, warm, vmapped,
-                                                    expected):
-    a_mv, b = _system(scale=scale)
+                                                    lanes, expected):
+    a_mv, a_mv_lanes, b, calls = _system(scale=scale)
     cfg = KrylovConfig(max_iterations=max_it, tolerance=tol, restart=4)
     x0 = torch.ones_like(b) if warm else None
-    _, prof = _profiled(lambda: gmres_batched(a_mv, b, cfg, x0=x0, vmapped=vmapped))
+    sol, _ = _profiled(lambda: gmres_batched(a_mv, b, cfg, x0=x0, vmapped=vmapped,
+                                             a_mv_lanes=a_mv_lanes if lanes else None))
     counters = profiling.snapshot()["counters"]
     cycles, matvecs, checks = expected
     assert (counters["gmres.cycles"], counters["gmres.matvecs"],
-            counters["host_sync.gmres"]) == (cycles, matvecs, checks)
+            counters["host_sync.gmres"]) == (cycles, pytest.approx(matvecs, rel=1e-12), checks)
     assert counters["host_sync.upload"] == 1  # the tolerance
+    if lanes:
+        nf, lane_steps = b.shape[1], int(sol.iterations.sum())
+        restarts = cycles - 1 + warm
+        assert counters["gmres.matvecs"] == pytest.approx(lane_steps / nf + restarts, rel=1e-12)
+        assert counters["gmres.lane_steps_skipped"] == len(calls) * nf - lane_steps
+    else:
+        assert "gmres.lane_steps_skipped" not in counters
 
 
 def test_bem_lane_iterations_are_gmres_own(bem_sweep, monkeypatch):
@@ -180,7 +210,12 @@ def test_bem_lane_iterations_are_gmres_own(bem_sweep, monkeypatch):
     assert len(solutions) == 1
     assert snap["tallies"]["bem.gmres.lane_iterations"] == int(solutions[0].iterations.sum())
     assert snap["counters"]["bem.gmres.lanes"] == len(KS_BEM)
-    assert snap["counters"]["gmres.matvecs"] >= int(solutions[0].iterations.max())
+    # a step on k of the F lanes reads k / F of the band; one restart residual
+    # (the whole band) a cycle after the first
+    nf = len(KS_BEM)
+    assert snap["counters"]["gmres.matvecs"] == pytest.approx(
+        int(solutions[0].iterations.sum()) / nf + snap["counters"]["gmres.cycles"] - 1,
+        rel=1e-12)
 
 
 @pytest.mark.parametrize("row_block", [0, 64, 100, 320, 500])
