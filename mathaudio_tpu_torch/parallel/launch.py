@@ -19,8 +19,13 @@ a collective that one rank never joins fails every rank after
 ``timeout`` seconds instead of hanging. A rank that fails exits at once,
 without tearing its process group down (its peers may be waiting in a
 collective), and the parent then stops the others; the parent also stops
-every rank still running after ``join_timeout`` seconds. It raises the
-first failure with the failing rank's traceback. Each rank runs one intra-op
+every rank still running after ``join_timeout`` seconds (3 minutes unless
+the caller gives another bound), and first has it dump every thread's stack
+(``faulthandler``), which the error then carries.
+It raises the first failure with the failing rank's traceback. The
+arguments go to the ranks through a file in that directory, not through
+the spawn pipe: a pipe write larger than its buffer would wait for each
+child to import torch, one child after the other. Each rank runs one intra-op
 thread (``THREADS``), in torch and in the BLAS and OpenMP pools that numpy
 and scipy use (set in the children's environment before they start): the
 ranks share the host's cores, and some MKL builds hang in batched complex
@@ -33,10 +38,12 @@ sets the environment that ``init_device_mesh`` reads.
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import multiprocessing
 import os
 import pickle
 import shutil
+import signal
 import sys
 import tempfile
 import time
@@ -69,16 +76,21 @@ def _dump(path, result):
     os.replace(path + ".part", path)
 
 
-def _child(fn, rank, world, backend, init_file, timeout, out_dir, args):
+def _child(fn, rank, world, backend, timeout, tmp):
     import torch.distributed as dist
 
-    out = os.path.join(out_dir, f"rank{rank}.pkl")
+    out = os.path.join(tmp, f"rank{rank}.pkl")
+    stack = open(os.path.join(tmp, f"rank{rank}.stack"), "w")
+    faulthandler.register(signal.SIGUSR1, file=stack, all_threads=True)
     try:
+        with open(os.path.join(tmp, "args.pkl"), "rb") as f:
+            args = pickle.load(f)
         torch.set_num_threads(THREADS)
         if backend == "nccl":
             torch.cuda.set_device(rank)
-        dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
-                                world_size=world, timeout=datetime.timedelta(seconds=timeout))
+        dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "pg"),
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=timeout))
         result = ("ok", _to_cpu(fn(rank, world, *args)))
     except Exception:  # every failure goes back to the parent, which raises it
         _dump(out, ("error", (time.time(), traceback.format_exc())))
@@ -89,21 +101,33 @@ def _child(fn, rank, world, backend, init_file, timeout, out_dir, args):
     _dump(out, result)
 
 
+def _stack(tmp, rank) -> str:
+    """The stack that a timed-out ``rank`` dumped, as a suffix of its
+    failure line."""
+    path, text = os.path.join(tmp, f"rank{rank}.stack"), ""
+    if os.path.exists(path):  # not if it was stopped before it could register
+        with open(path) as f:
+            text = f.read().strip()
+    return f"; its stack:\n{text}" if text else "; it dumped no stack"
+
+
 def launch(fn, world: int, *args, backend: str = "nccl", timeout: float = 90.0,
-           join_timeout: float = 600.0):
+           join_timeout: float = 180.0):
     """[fn(0, world, *args), ..., fn(world - 1, world, *args)], each run in
     its own spawned process under one ``backend`` process group (see the
     module docstring). Raises RuntimeError with every rank's failure, the
-    earliest first, then the ranks that timed out, died or were stopped."""
+    earliest first, then the ranks that timed out (each with its stack),
+    died or were stopped."""
     if backend == "nccl" and world > torch.cuda.device_count():
         raise RuntimeError(f"NCCL needs one card per rank: {world} ranks, "
                            f"{torch.cuda.device_count()} card(s)")
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="mathaudio_launch_")
     try:
-        init_file = os.path.join(tmp, "pg")
-        procs = [ctx.Process(target=_child, args=(fn, r, world, backend, init_file, timeout,
-                                                  tmp, args), daemon=True)
+        with open(os.path.join(tmp, "args.pkl"), "wb") as f:
+            pickle.dump(args, f)
+        procs = [ctx.Process(target=_child, args=(fn, r, world, backend, timeout, tmp),
+                             daemon=True)
                  for r in range(world)]
         saved = {k: os.environ.get(k) for k in _THREAD_VARS}
         os.environ.update({k: str(THREADS) for k in _THREAD_VARS})
@@ -122,6 +146,10 @@ def launch(fn, world: int, *args, backend: str = "nccl", timeout: float = 90.0,
             time.sleep(0.1)
         alive = [r for r, p in enumerate(procs) if p.is_alive()]
         failed = any(p.exitcode for p in procs)
+        if alive and not failed:  # timed out: each stuck rank dumps its stack
+            for r in alive:
+                os.kill(procs[r].pid, signal.SIGUSR1)
+            time.sleep(1.0)
         for p in procs:
             if p.is_alive():
                 p.kill()
@@ -130,9 +158,11 @@ def launch(fn, world: int, *args, backend: str = "nccl", timeout: float = 90.0,
         for r in range(world):
             path = os.path.join(tmp, f"rank{r}.pkl")
             if not os.path.exists(path):
-                why = (("stopped after another rank failed" if failed else "timed out")
+                why = (("stopped after another rank failed" if failed
+                        else f"timed out after {join_timeout:g} s")
                        if r in alive else f"died (exit code {procs[r].exitcode})")
-                failures.append(f"rank {r} {why} without a result")
+                stack = _stack(tmp, r) if r in alive and not failed else ""
+                failures.append(f"rank {r} {why} without a result{stack}")
                 continue
             with open(path, "rb") as f:
                 status, value = pickle.load(f)

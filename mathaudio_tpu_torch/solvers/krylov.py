@@ -90,11 +90,9 @@ def _reducers(axis_name):
     this rank's vectors are the whole vectors). vdot(x, y) = sum conj(x) y
     and norm are 0-d tensors on the vectors' device."""
     group = axis_group(axis_name)
-    if group is None:
-        return (lambda x, y: torch.sum(torch.conj(x) * y)), torch.linalg.vector_norm, (lambda v: v)
 
     def psum(v):
-        return all_reduce_sum(v, group)
+        return v if group is None else all_reduce_sum(v, group)
 
     return ((lambda x, y: psum(torch.sum(torch.conj(x) * y))),
             (lambda v: torch.sqrt(psum(torch.sum(torch.abs(v) ** 2)))), psum)

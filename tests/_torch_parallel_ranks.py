@@ -1,8 +1,9 @@
 """Rank functions of the port's multi-rank parity tests, and a one-rank
 process group for the tests that run a sharded value in their own process.
 
-The tests spawn gloo ranks through ``mathaudio_tpu_torch.parallel.launch``;
-each child imports this module anew, so it imports torch, numpy and the
+The tests spawn gloo ranks through ``mathaudio_tpu_torch.parallel.launch``
+(``launch_beside`` runs them while the test computes its reference); each
+child imports this module anew, so it imports torch, numpy and the
 port only (never JAX, nor a test file's fixtures). Inputs arrive as numpy
 arrays; each function returns this rank's results as tensors, which the
 launcher brings back to the parent on the CPU.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -36,6 +38,20 @@ def one_rank_group():
             yield init_device_mesh("cpu", (1,), mesh_dim_names=("dof",))
         finally:
             dist.destroy_process_group()
+
+
+def launch_beside(reference, fn, world, *args, timeout, join_timeout):
+    """(every rank's result of ``fn``, ``reference()``): the gloo ranks run
+    while this process computes the reference (the launcher only waits)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mathaudio_tpu_torch.parallel.launch import launch
+
+    with ThreadPoolExecutor(1) as pool:
+        port = pool.submit(launch, fn, world, *args, backend="gloo", timeout=timeout,
+                           join_timeout=join_timeout)
+        ref = reference()
+        return port.result(), ref
 
 
 def _csr(d):
@@ -279,6 +295,13 @@ def failing_rank(rank, world):
     t = torch.ones(1)
     dist.all_reduce(t)
     return float(t)
+
+
+def hanging_rank(rank, world):
+    """Rank 1 never returns; rank 0 returns its rank at once."""
+    if rank == 1:
+        time.sleep(3600)
+    return rank
 
 
 def cuda_rank(rank, world, inp):

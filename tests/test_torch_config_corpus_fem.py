@@ -1,6 +1,8 @@
 """Port vs reference: the rectangular files of ``configs/`` other than
 ``home_theater_*`` through the two roomsim_fem CLIs
-(``run_fem_simulation(cfg, verbose=0)``).
+(``run_fem_simulation(cfg, verbose=0)``): the two ``example_*`` rooms here,
+the other three in test_torch_config_corpus_fem_rooms.py (a file of its
+own, so that a parallel test run takes the two at once).
 
 Each config is clamped as tests/test_config_corpus.py clamps it for its FEM
 smoke (tests/_torch_corpus.py): 2 frequencies up to 120 Hz, mesh resolution
@@ -36,10 +38,9 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(scope="module", params=FEM_CONFIGS, ids=[p.stem for p in FEM_CONFIGS])
-def runs(request):
+def fem_runs(path):
     """(port results, reference results, the port's config) of one file."""
-    path = str(request.param)
+    path = str(path)
     cfg = smoke_clamp(config.RoomConfig.from_file(path), FEM_RESOLUTION, config.SurfaceSpec)
     ref_cfg = smoke_clamp(jax_config.RoomConfig.from_file(path), FEM_RESOLUTION,
                           jax_config.SurfaceSpec)
@@ -47,6 +48,14 @@ def runs(request):
     got = roomsim.run_fem_simulation(cfg, verbose=0, device="cpu", dtype=torch.float64)
     ref = jax_roomsim.run_fem_simulation(ref_cfg, verbose=0)
     return got, ref, cfg
+
+
+EXAMPLES = [p for p in FEM_CONFIGS if p.stem.startswith("example_")]
+
+
+@pytest.fixture(scope="module", params=EXAMPLES, ids=[p.stem for p in EXAMPLES])
+def runs(request):
+    return fem_runs(request.param)
 
 
 def test_the_fem_corpus_is_the_five_rectangular_rooms():

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from _torch_parallel_ranks import fmm_rank
+from _torch_parallel_ranks import fmm_rank, launch_beside
 from mathaudio_tpu.bem import plane_wave
 from mathaudio_tpu.bem.fmm import (
     ClusterBlockPreconditioner,
@@ -31,7 +31,6 @@ from mathaudio_tpu.bem.fmm import (
 from mathaudio_tpu.bem.mesh import icosphere
 from mathaudio_tpu.parallel import fmm_spmd as jax_fmm_spmd
 from mathaudio_tpu.solvers import KrylovConfig
-from mathaudio_tpu_torch.parallel.launch import launch
 
 SLFMM_CFG = dict(max_iterations=150, tolerance=1e-8, restart=40)
 TREE_CFG = dict(max_iterations=200, tolerance=1e-8, restart=50)
@@ -71,11 +70,7 @@ def operators():
     return dict(slfmm=slfmm, tree=tree), inputs
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
-def runs(request, operators):
-    s = request.param
-    ops, inputs = operators
-    port = launch(fmm_rank, s, inputs, backend="gloo")
+def _reference(ops, inputs, s):
     mesh = Mesh(np.asarray(jax.devices()[:s]), ("fmm",))
     ref = {}
     for label, shard, mv_fn, solve_fn in (
@@ -91,6 +86,18 @@ def runs(request, operators):
         cfg = KrylovConfig(**inputs[f"{label}_cfg"])
         ref[(label, "solve")] = jax.jit(solve_fn(mesh, cfg))(sharded, pre,
                                                              jnp.asarray(inputs[f"{label}_rhs"]))
+    return ref
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
+def runs(request, operators):
+    """(s, every rank's results, the reference's) at s ranks. The ranks took
+    26 s (2) and 24 s (4) beside five other test workers; a rank still
+    running at ``join_timeout`` (~4x that) fails the test."""
+    s = request.param
+    ops, inputs = operators
+    port, ref = launch_beside(lambda: _reference(ops, inputs, s), fmm_rank, s, inputs,
+                              timeout=100, join_timeout=110)
     return s, port, ref
 
 

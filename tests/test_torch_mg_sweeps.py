@@ -5,7 +5,9 @@ mathaudio_tpu's with the same option, at n=8, 3 levels, 8 frequencies in
 [0.55, 2.2], 4 anchors, nu 1, omega 1, GMRES restart 8, tol 1e-6, on the
 CPU in float64: the tensor-product (``mg_transfers="tp"``) and streamed
 (``"stream"``) transfers, each also against the port's gather sweep (the
-same operator), and the W and F cycles. Iterations and converged flags
+same operator), and the W and F cycles; the streamed transfers run in
+test_torch_mg_sweeps_stream.py (a file of its own, so that a parallel test
+run takes the two at once). Iterations and converged flags
 lane for lane, pressures to 1e-9 of max|p|. The stream16 and Jacobi sweeps
 are in tests/test_torch_mg_jit_sweeps.py.
 
@@ -70,7 +72,15 @@ OPTIONS = {
 }
 
 
-@pytest.mark.parametrize("option", list(OPTIONS))
+# the options that test_torch_mg_sweeps_stream.py runs
+STREAMED = ["stream"]
+
+
+@pytest.fixture(params=[o for o in OPTIONS if o not in STREAMED])
+def option(request):
+    return request.param
+
+
 def test_sweep_option_matches_reference(sweeps, option):
     jnm, tnm = sweeps
     fn = jnm.sweep_fn(JaxKrylovConfig(**CONFIG), **KNOBS, **OPTIONS[option])

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from _torch_parallel_ranks import failing_rank, parallel_rank
+from _torch_parallel_ranks import failing_rank, hanging_rank, launch_beside, parallel_rank
 from mathaudio_tpu.fem.mesh import unit_cube_tetrahedra
 from mathaudio_tpu.models import RoomSweepModel
 from mathaudio_tpu.models.helmholtz_room import sweep_pressure
@@ -52,13 +52,7 @@ def room():
                           listening_positions=((0.25, 0.25, 0.25), (0.7, 0.6, 0.4)))
 
 
-@pytest.fixture(scope="module", params=[(2, 1), (4, 2)], ids=["2x1", "2x2"])
-def runs(request, room):
-    world, dof = request.param
-    values = np.arange(1.0, world // dof + 1.0) ** 2
-    port = launch(parallel_rank, world, dict(dof=dof, cfg=CFG, ks=KS, values=values, pop=POP),
-                  backend="gloo")
-    mesh = sweep_mesh(world, dof_parallel=dof)
+def _reference(room, mesh, values):
     cfg = KrylovConfig(**CFG)
 
     def sweep(params, ks):
@@ -72,7 +66,20 @@ def runs(request, room):
     ref_pmean = np.asarray(jax.jit(jax.shard_map(
         lambda v: pmean_convergence(v, "freq"), mesh=mesh, in_specs=P("freq"), out_specs=P(),
         check_vma=False))(jnp.asarray(values)))
-    return world, dof, mesh, port, dict(sweep=ref_sweep, de=ref_de, pmean=ref_pmean)
+    return dict(sweep=ref_sweep, de=ref_de, pmean=ref_pmean)
+
+
+@pytest.fixture(scope="module", params=[(2, 1), (4, 2)], ids=["2x1", "2x2"])
+def runs(request, room):
+    """The ranks took 10 s (2) and 12 s (4) beside five other test workers;
+    a rank still running at ``join_timeout`` (~4x that) fails the test."""
+    world, dof = request.param
+    values = np.arange(1.0, world // dof + 1.0) ** 2
+    mesh = sweep_mesh(world, dof_parallel=dof)
+    port, ref = launch_beside(lambda: _reference(room, mesh, values), parallel_rank, world,
+                              dict(dof=dof, cfg=CFG, ks=KS, values=values, pop=POP),
+                              timeout=40, join_timeout=50)
+    return world, dof, mesh, port, ref
 
 
 def test_mesh_axes_and_coordinates(runs):
@@ -111,6 +118,8 @@ def test_population_sharded_de_eval(runs):
 
 
 def test_dryrun_at_8_ranks_matches_the_recorded_reference():
+    # launch's default join_timeout (180 s) bounds the 8 ranks (47 s beside
+    # five other test workers)
     line = dryrun_multichip(8, "cpu")
     recorded = json.loads((ROOT / "MULTICHIP_r05.json").read_text())["tail"]
     fields = dict(f.split("=", 1) for f in line.split(": ", 1)[1].split() if "=" in f)
@@ -126,11 +135,31 @@ def test_dryrun_at_8_ranks_matches_the_recorded_reference():
 
 def test_launch_stops_the_peers_of_a_failed_rank():
     # rank 0 waits in a collective that rank 1 never joins: the launch
-    # raises rank 1's error well before the process group's timeout
+    # raises rank 1's error (in ~4 s) well before the process group's timeout
     t0 = time.monotonic()
     with pytest.raises(RuntimeError) as err:
-        launch(failing_rank, 2, backend="gloo", timeout=120)
+        launch(failing_rank, 2, backend="gloo", timeout=120, join_timeout=180)
     assert time.monotonic() - t0 < 60
     msg = str(err.value)
     assert msg.index("rank 1 failed:") < msg.index("rank 0 ")  # the first failure leads
     assert "ValueError: rank 1 gives up" in msg
+
+
+def test_launch_stops_a_rank_that_never_returns():
+    # rank 1 sleeps for an hour: the launch stops it at join_timeout and
+    # names it, with the stack it dumped on the way out. On a loaded host
+    # both ranks may still be starting at 6 s (rank 0 then times out too,
+    # and a rank that had not yet reached its function dumps no stack)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError) as err:
+        launch(hanging_rank, 2, backend="gloo", timeout=5, join_timeout=6)
+    assert time.monotonic() - t0 < 6 + 3
+    msg = str(err.value)
+    head = "rank 1 timed out after 6 s without a result"
+    assert head in msg
+    rest = msg.split(head, 1)[1]
+    assert rest.startswith(("; its stack:\n", "; it dumped no stack"))
+    if rest.startswith("; its stack:"):
+        assert "in _child" in rest  # the rank's own frames
+    if "rank 0 " not in msg:  # rank 0 returned, so rank 1 had reached its function
+        assert "in hanging_rank" in rest

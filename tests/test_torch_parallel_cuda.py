@@ -38,7 +38,7 @@ def runs():
     kernels.build_all(("dia_stencil", "bem_pairwise"))
     torch.cuda.empty_cache()
     world = torch.cuda.device_count()
-    return world, launch(cuda_rank, world, INPUTS, backend="nccl")
+    return world, launch(cuda_rank, world, INPUTS, backend="nccl", join_timeout=180)
 
 
 def test_sharded_sweep_on_the_cards(runs):

@@ -3,7 +3,10 @@
 ``NodeMajorRoomSweep.sweep_fn`` of mathaudio_tpu_torch against
 mathaudio_tpu's at n=8, 3 levels, 32 frequencies streamed in chunks of 16,
 4 anchors, with the bench's solver knobs (CGS1, restart 6, V(1,1),
-omega 1): cold, and warm-started with stride 4 (linear and cubic). Both
+omega 1): cold here, and warm-started with stride 4 (cubic and linear) in
+test_torch_room_sweep_nm_warm.py and test_torch_room_sweep_nm_warm_linear.py
+(files of their own, so that a parallel test run takes them at once: each
+reference takes ~10-25 s alone). Both
 run on the CPU in float64; iterations and converged flags must be equal
 lane for lane and pressures equal to 1e-9 of max|p|.
 
@@ -73,7 +76,16 @@ def _assert_matches(got, ref):
     np.testing.assert_allclose(p, rp, rtol=0, atol=1e-9 * np.abs(rp).max())
 
 
-@pytest.mark.parametrize("variant", sorted(WARM))
+# the variants that test_torch_room_sweep_nm_warm.py and
+# test_torch_room_sweep_nm_warm_linear.py run
+CUBIC, LINEAR = ["warm_cubic"], ["warm_linear"]
+
+
+@pytest.fixture(params=[v for v in sorted(WARM) if v not in CUBIC + LINEAR])
+def variant(request):
+    return request.param
+
+
 def test_sweep_matches_reference(sweeps, variant):
     _, tnm, reference = sweeps
     fn = tnm.sweep_fn(KrylovConfig(**CONFIG), **KNOBS, **WARM[variant])

@@ -2,12 +2,14 @@
 matvecs, the device Schwarz apply, the sharded GMRES with and without
 Schwarz and with the Ghysels variant, the row-sharded dense solve),
 BemSolver's ``device_mesh`` route, and every Krylov solver with
-``axis_name``, at 2 and 4 ranks.
+``axis_name``, at 2 ranks here and at 4 in test_torch_spmd_4ranks.py (a
+file of its own, so that a parallel test run takes the two at once).
 
 The port runs in gloo ranks spawned once per world size
-(``parallel.launch``, rank functions in ``_torch_parallel_ranks.py``); the
-reference runs its ``shard_map`` over the first 2 or 4 of conftest's 8
-virtual CPU devices, on the same seeded numpy inputs, in float64. Rank r's
+(``parallel.launch``, rank functions in ``_torch_parallel_ranks.py``),
+beside the reference, which is built once per world size and runs its
+``shard_map`` over the first 2 or 4 of conftest's 8 virtual CPU devices,
+on the same seeded numpy inputs, in float64. Rank r's
 rows are held against the reference's shard r: matvecs to 1e-12 of max|y|,
 solutions to 1e-9 of max|x| with equal iteration counts. The sizes leave
 the last shard with padding rows (50 rows over 4 shards, a 30 x 30 dense
@@ -21,12 +23,11 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 
 import mathaudio_tpu.solvers.krylov as jax_krylov
-from _torch_parallel_ranks import KRYLOV_NAMES, spmd_rank
+from _torch_parallel_ranks import KRYLOV_NAMES, launch_beside, spmd_rank
 from mathaudio_tpu.bem import BemProblem, BemSolver, BemSolverConfig
 from mathaudio_tpu.bem.types import SolverMethod
 from mathaudio_tpu.parallel import spmd as jax_spmd
 from mathaudio_tpu.solvers.sparse import CsrMatrix
-from mathaudio_tpu_torch.parallel.launch import launch
 
 N = 50
 GMRES_CFG = dict(max_iterations=200, tolerance=1e-10, restart=40)
@@ -142,10 +143,18 @@ def _reference(s):
     return out
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
+def run(s):
+    """(s, every rank's results, the reference's) at s ranks. The ranks took
+    15 s (2) and 31 s (4) beside five other test workers; a rank still
+    running at ``join_timeout`` (~4x that) fails the test."""
+    port, ref = launch_beside(lambda: _reference(s), spmd_rank, s, INPUTS, timeout=25 * s,
+                              join_timeout=30 * s)
+    return s, port, ref
+
+
+@pytest.fixture(scope="module", params=[2], ids=["2ranks"])
 def runs(request):
-    s = request.param
-    return s, launch(spmd_rank, s, INPUTS, backend="gloo"), _reference(s)
+    return run(request.param)
 
 
 def _close(got, want, tol):

@@ -1,8 +1,11 @@
 """Port vs reference: NodeMajorRoomSweep.sharded_sweep_fn, the headline
-node-major sweep split by frequency lanes, at 2 and 4 ranks.
+node-major sweep split by frequency lanes, at 2 ranks here and at 4 in
+test_torch_spmd_sweep_4ranks.py (a file of its own, so that a parallel test
+run takes the two at once).
 
 The port runs in gloo ranks spawned once per world size (rank function
-``sweep_rank`` in ``_torch_parallel_ranks.py``), each building the room
+``sweep_rank`` in ``_torch_parallel_ranks.py``) beside the reference, each
+rank building the room
 (box_hierarchy(4, 2), float64) and solving its contiguous chunk of 16
 wavenumbers; the reference runs its ``shard_map`` over the first 2 or 4 of
 conftest's 8 virtual CPU devices. Every rank returns the whole band
@@ -17,12 +20,11 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from _torch_parallel_ranks import sweep_rank
+from _torch_parallel_ranks import launch_beside, sweep_rank
 from mathaudio_tpu.fem.multigrid import GeometricMultigrid, box_hierarchy
 from mathaudio_tpu.models import RoomSweepModel
 from mathaudio_tpu.models.room_sweep_nm import NodeMajorRoomSweep
 from mathaudio_tpu.solvers import KrylovConfig
-from mathaudio_tpu_torch.parallel.launch import launch
 
 CFG = dict(max_iterations=60, tolerance=1e-6, restart=6)
 KS = np.linspace(0.6, 2.1, 16)
@@ -40,16 +42,25 @@ def reference_sweep():
     return NodeMajorRoomSweep(model, mg)
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
-def runs(request, reference_sweep):
-    s = request.param
-    port = launch(sweep_rank, s, dict(cfg=CFG, knobs=KNOBS, ks=KS), backend="gloo")
+def run(s, nm):
+    """(s, every rank's results, the reference's) at s ranks. The ranks took
+    17 s (2) and 20 s (4) beside five other test workers; a rank still
+    running at ``join_timeout`` (~4x that) fails the test."""
     fmesh = Mesh(np.asarray(jax.devices()[:s]), ("freq",))
-    nm = reference_sweep
-    ref = {label: [np.asarray(a) for a in jax.jit(nm.sharded_sweep_fn(
-        fmesh, KrylovConfig(**CFG), **knobs))(nm.params(), jnp.asarray(KS))]
-        for label, knobs in KNOBS.items()}
+
+    def reference():
+        return {label: [np.asarray(a) for a in jax.jit(nm.sharded_sweep_fn(
+            fmesh, KrylovConfig(**CFG), **knobs))(nm.params(), jnp.asarray(KS))]
+            for label, knobs in KNOBS.items()}
+
+    port, ref = launch_beside(reference, sweep_rank, s, dict(cfg=CFG, knobs=KNOBS, ks=KS),
+                              timeout=70, join_timeout=80)
     return s, port, ref
+
+
+@pytest.fixture(scope="module", params=[2], ids=["2ranks"])
+def runs(request, reference_sweep):
+    return run(request.param, reference_sweep)
 
 
 @pytest.mark.parametrize("label", list(KNOBS))
